@@ -1,26 +1,41 @@
 """montecarlo_risk_engine_tpu_torch — the PyTorch / CUDA port of the engine.
 
 A second package beside ``montecarlo_risk_engine_tpu`` (the JAX reference,
-which it never imports).  This slice covers the Heston-QE European book
+which it never imports).  Ported so far: the Heston-QE European book and the
+north-star xVA book (a ModelConfig of Vasicek, Black-Scholes and CIR++
+models; swaps and options; LSM exposures, MPoR collateral, CVA, EPE, PFE)
 through ``SimulationController``, forward and differentiated, with the path
-kernel written in CUDA for Hopper (``ops/heston_qe.py``,
-``csrc/heston_qe.cu``).
+kernels written in CUDA for Hopper (``ops/heston_qe.py`` +
+``csrc/heston_qe.cu``, ``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
 """
 
 from montecarlo_risk_engine_tpu_torch.api.controller import SimulationController
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, resolve_device
 from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
+    CEMetric,
+    CVAMetric,
+    EEPEMetric,
+    ENEMetric,
+    EPEMetric,
     Metric,
     MetricType,
+    PFEMetric,
     PVMetric,
     RiskMetrics,
 )
 from montecarlo_risk_engine_tpu_torch.models.base import params_from_numpy
+from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
+from montecarlo_risk_engine_tpu_torch.models.cirpp import CIRPPModel
 from montecarlo_risk_engine_tpu_torch.models.heston import HestonModel
+from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
+from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
 from montecarlo_risk_engine_tpu_torch.products.base import OptionType, Product, ProductFamily
+from montecarlo_risk_engine_tpu_torch.products.bond import Bond
 from montecarlo_risk_engine_tpu_torch.products.equity import Equity
 from montecarlo_risk_engine_tpu_torch.products.european_option import EuropeanOption
 from montecarlo_risk_engine_tpu_torch.products.netting_set import NettingSet
+from montecarlo_risk_engine_tpu_torch.products.swap import InterestRateSwap, IRSType
+from montecarlo_risk_engine_tpu_torch.utils.regression import PolynomialRegression
 
 __all__ = [name for name in dir() if not name.startswith("_")]

@@ -1,21 +1,27 @@
-"""SimulationController: the end-to-end Monte Carlo pricing pipeline.
+"""SimulationController: the end-to-end Monte Carlo pipeline.
 
-Counterpart of ``montecarlo_risk_engine_tpu/api/controller.py`` for the PV
-slice: the constructor checks and the unified simulation timeline, plane-mode
-simulation and request resolution, per-product valuation into netting sets
-(the JAX ``batch_products=False`` semantics), PV metrics, first-order
-sensitivities and the named result assembly.
+Counterpart of ``montecarlo_risk_engine_tpu/api/controller.py`` with the JAX
+``batch_products=False, streaming=False`` semantics: the constructor checks,
+the unified simulation timeline with the internal exposure timeline (metric
+dates plus MPoR collateral query dates), the pre-simulation and the LSM
+fits of the exposure profiles, plane-mode simulation and request
+resolution, per-product valuation into netting sets with thresholds and
+MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE, CVA),
+first-order sensitivities and the named result assembly.  Early-exercise
+products, Hessians, batching and streaming are not ported yet.
 
 PyTorch runs the pipeline eagerly on ``device``.  Path generation takes one
 of two routes:
 
-  * the Heston-QE path kernel (ops/heston_qe.py) when the book is eligible:
-    a Heston model under the QE scheme without the martingale correction,
-    the pseudo-random sampler and no antithetic pairs.  Differentiated runs
-    use its noise-emitting variant and rebuild the paths from the frozen
-    draws under autograd (ops/paths_ad.py).  The kernel's dispatcher, not
-    the controller, looks at the device: CUDA launches the kernel, the CPU
-    runs its plain version.
+  * a path kernel when the book is eligible (the model's
+    ``supports_kernel_paths``, the pseudo-random sampler, no antithetic
+    pairs): the Heston-QE kernel (ops/heston_qe.py) or the hybrid kernel
+    of ModelConfig books (ops/hybrid_paths.py).  Differentiated runs rebuild
+    the paths from the kernel's frozen draws under AD (ops/paths_ad.py):
+    emitted draws for Heston QE, draws recovered from the states for the
+    invertible hybrid steps.  The kernel's dispatcher, not the controller,
+    looks at the device: CUDA launches the kernel, the CPU runs its plain
+    version.
   * otherwise the engine (engine/engine.py), on any device.
 
 ``use_kernel``: "auto" takes the kernel whenever eligible, True requires it
@@ -23,34 +29,65 @@ of two routes:
 ``noise_source`` ({phase: counter -> (z, u)}, the test seam that feeds the
 JAX engine's own draws) forces the engine too.
 
-Sensitivities: reverse mode.  One recorded forward pass, then one batched
-backward over the V metric values (``is_grads_batched``): the values share
-every path, the graph holds the draws once, and V (one PV per netting set)
-and P (7 Heston parameters) are of the same order, so reverse mode costs one
-forward where forward mode would repeat the whole pipeline per parameter.
+Sensitivities take the direction the JAX package takes (controller.py:
+1700-1705): forward mode when the parameter count P is at most the value
+count V, else reverse mode.
+
+  * Forward: ``torch.func.jvp`` under ``torch.func.vmap`` over chunks of
+    ``grad_chunk_size`` parameter tangents (the counterpart of
+    ``_chunked_jacfwd``); each chunk is one pass whose primal is the
+    valuation.  The kernel run and the noise recovery sit outside the
+    sweeps: each phase's frozen draws are computed once per run.
+  * Reverse: one recorded forward pass, then one batched backward over the
+    V metric values (``is_grads_batched``).
+
+Gradients flow through the pre-simulation's regression coefficients, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from bisect import bisect_left
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.func import jvp, vmap
 
 from montecarlo_risk_engine_tpu_torch import rng
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, real_dtype, resolve_device
 from montecarlo_risk_engine_tpu_torch.engine.engine import simulate_paths
-from montecarlo_risk_engine_tpu_torch.metrics.metrics import EvaluationType, RiskMetrics
+from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
+    EvaluationType,
+    Metric,
+    MetricType,
+    RiskMetrics,
+)
 from montecarlo_risk_engine_tpu_torch.models.base import Model
-from montecarlo_risk_engine_tpu_torch.ops.paths_ad import dense_timeline, emitted_noise_fns
+from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
+from montecarlo_risk_engine_tpu_torch.ops.paths_ad import (
+    dense_timeline,
+    emitted_noise_fns,
+    recovered_noise_fns,
+)
 from montecarlo_risk_engine_tpu_torch.products.base import Product
 from montecarlo_risk_engine_tpu_torch.products.netting_set import NettingSet
-from montecarlo_risk_engine_tpu_torch.requests import RequestPlan
+from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType, RequestPlan
+from montecarlo_risk_engine_tpu_torch.utils.regression import (
+    PolynomialRegression,
+    RegressionFunction,
+    fit_least_squares,
+)
 
 logger = logging.getLogger(__name__)
+
+# Metrics reported once per netting set; the others once per metric
+# exposure date (controller.py:2360-2373).
+_SCALAR_METRICS = {MetricType.PV, MetricType.CVA, MetricType.EEPE, MetricType.CE}
 
 
 class SimulationController:
@@ -64,9 +101,11 @@ class SimulationController:
         num_steps: int,
         simulation_scheme: SimulationScheme,
         differentiate: bool = False,
+        regression_function: Optional[RegressionFunction] = None,
         root_seed: int = 0,
         antithetic: bool = False,
         sampler: str = "pseudo",
+        grad_chunk_size: int = 8,
         use_kernel: object = "auto",
         device=None,
         noise_source: Optional[Dict[int, Callable]] = None,
@@ -89,16 +128,34 @@ class SimulationController:
         for ns_idx, ns in enumerate(netting_sets):
             self.product_to_netting_set_idx.extend([ns_idx] * len(ns.products))
 
-        if risk_metrics.requires_exposure_profiles():
-            raise NotImplementedError(
-                "exposure metrics (CE/EPE/ENE/EEPE/PFE/CVA) are not ported yet; "
-                "this controller values PV books"
-            )
+        # Exposure timelines (controller.py:119-125, 313-332): the metric
+        # dates, plus each collateralised netting set's t - MPoR query dates.
+        self.metric_exposure_timeline: Tuple[float, ...] = tuple(risk_metrics.exposure_timeline)
+        self.exposure_timeline = self._build_internal_exposure_timeline()
+        self._exposure_time_to_idx = {t: i for i, t in enumerate(self.exposure_timeline)}
+        self.metric_exposure_indices = np.array(
+            [self._exposure_time_to_idx[t] for t in self.metric_exposure_timeline], dtype=int)
+        self.netting_set_delayed_exposure_indices = self._build_delayed_exposure_indices()
+
+        # Exposure-date observable requests (controller.py:127-137).
+        self.numeraire_requests: Dict[Tuple[float, str], AtomicRequest] = {
+            (t, "numeraire"): AtomicRequest(AtomicRequestType.NUMERAIRE, time1=t)
+            for t in self.exposure_timeline
+        }
+        self.spot_requests: Dict[Tuple[float, str], AtomicRequest] = {
+            (t, asset_id): AtomicRequest(AtomicRequestType.SPOT)
+            for prod in self.products for asset_id in prod.asset_ids
+            for t in self.exposure_timeline
+        }
+
         if any(m.evaluation_type == EvaluationType.ANALYTICAL for m in risk_metrics.metrics):
-            raise NotImplementedError(
-                "analytic evaluation comes with the Black-Scholes model; no model "
-                "of the port has a closed-form PV yet"
-            )
+            raise NotImplementedError("analytic metric evaluation is not ported yet")
+        if risk_metrics.any_xva:
+            if not isinstance(model, ModelConfig):
+                raise ValueError("ModelConfig needs to be provided for xVA valuation.")
+            missing = [cp for cp in risk_metrics.counterparty_ids if cp not in model.id_to_model]
+            if missing:
+                raise ValueError(f"No model simulates the counterparties {missing}.")
 
         self.model = model
         self.num_paths_presim = int(num_paths_presim)
@@ -106,6 +163,7 @@ class SimulationController:
         self.num_steps = int(num_steps)
         self.simulation_scheme = simulation_scheme
         self.differentiate = bool(differentiate)
+        self.regression_function = regression_function or PolynomialRegression(degree=2)
         self.root_seed = int(root_seed)
         self.antithetic = bool(antithetic)
         if sampler not in ("pseudo", "sobol"):
@@ -113,6 +171,7 @@ class SimulationController:
         if sampler == "sobol" and antithetic:
             raise ValueError("sampler='sobol' is incompatible with antithetic sampling")
         self.sampler = sampler
+        self.grad_chunk_size = max(1, int(grad_chunk_size))
         if use_kernel not in ("auto", True, False):
             raise ValueError("use_kernel must be 'auto', True or False")
         self.use_kernel = use_kernel
@@ -125,20 +184,68 @@ class SimulationController:
         if differentiate:
             self.model.requires_grad()
 
-        # Unified simulation timeline (reference controller.py:142-145).
+        # Unified simulation timeline (controller.py:253-256).
         prod_times = {t for prod in self.products for t in prod.modeling_timeline}
-        self.simulation_timeline: Tuple[float, ...] = tuple(sorted(prod_times))
+        self.simulation_timeline: Tuple[float, ...] = tuple(
+            sorted(prod_times | set(self.exposure_timeline)))
 
-        regression = [type(p).__name__ for p in self.products if len(p.regression_timeline) > 0]
-        if regression:
+        exercise = [type(p).__name__ for p in self.products if len(p.regression_timeline) > 0]
+        if exercise:
             raise NotImplementedError(
-                f"least-squares regression (early exercise) is not ported yet: {sorted(set(regression))}"
-            )
+                f"early-exercise products are not ported yet: {sorted(set(exercise))}")
+        self.requires_regression = any(self._product_requires_regression(p)
+                                       for p in self.products)
+        if self.requires_regression and self.num_paths_presim <= 0:
+            raise ValueError(
+                "num_paths_presim must be > 0: the book's exposure profiles need "
+                "least-squares fits on pre-simulation paths")
 
         self._kernel_active = self._decide_kernel()
         self._plan: Optional[RequestPlan] = None
 
-    # -- setup helpers ----------------------------------------------------------
+    # -- setup helpers (controller.py:313-392) ------------------------------------
+
+    def _build_internal_exposure_timeline(self) -> Tuple[float, ...]:
+        if not self.risk_metrics.requires_exposure_profiles():
+            return tuple(self.metric_exposure_timeline)
+        times = set(self.metric_exposure_timeline)
+        for ns in self.netting_sets:
+            times.update(ns.get_collateral_query_times(self.metric_exposure_timeline))
+        return tuple(sorted(times))
+
+    def _build_delayed_exposure_indices(self) -> List[np.ndarray]:
+        out = []
+        for ns in self.netting_sets:
+            delayed = np.full(len(self.metric_exposure_timeline), -1, dtype=int)
+            if ns.is_collateralized():
+                for i, t in enumerate(self.metric_exposure_timeline):
+                    if t - ns.margin_period_of_risk >= 0.0:
+                        delayed[i] = self._exposure_time_to_idx[t - ns.margin_period_of_risk]
+            out.append(delayed)
+        return out
+
+    def _can_use_analytic_exposure_for_product(self, product: Product) -> bool:
+        # Pathwise closed-form exposures serve every exposure aggregation but
+        # CVA (controller.py:350-365).
+        supported = {MetricType.PV, MetricType.EPE, MetricType.ENE, MetricType.CE,
+                     MetricType.EEPE, MetricType.PFE}
+        return (all(m.metric_type in supported for m in self.risk_metrics.metrics)
+                and product.supports_analytic_exposure(self.model))
+
+    def _product_requires_regression(self, product: Product) -> bool:
+        return (self.risk_metrics.requires_exposure_profiles()
+                and not self._can_use_analytic_exposure_for_product(product))
+
+    def _get_requests(self):
+        requests = defaultdict(set)
+        for label, req in self.numeraire_requests.items():
+            requests[label].add(req)
+        for label, req in self.spot_requests.items():
+            requests[label].add(req)
+        for metric in self.risk_metrics.metrics:
+            for label, reqs in metric.get_requests().items():
+                requests[label].update(reqs)
+        return requests
 
     def _decide_kernel(self) -> bool:
         """The plain rule that replaces the JAX package's ``_decide_pallas``."""
@@ -150,8 +257,9 @@ class SimulationController:
         if self.use_kernel is True:
             if not eligible:
                 raise ValueError(
-                    "use_kernel=True but the book is not kernel-eligible: the path kernel "
-                    "needs a Heston model under QE without the martingale correction, "
+                    "use_kernel=True but the book is not kernel-eligible: the path kernels "
+                    "need a Heston model under QE without the martingale correction, or a "
+                    "ModelConfig of Black-Scholes / Vasicek / CIR++ models under EULER, with "
                     "sampler='pseudo' and antithetic=False"
                 )
             if self.noise_source is not None:
@@ -172,13 +280,48 @@ class SimulationController:
 
     # -- simulation -------------------------------------------------------------
 
-    def _simulate_and_resolve(self, params, num_paths: int, phase: int):
+    def _phases(self):
+        """(phase, num_paths) of every simulation a run makes."""
+        phases = [(rng.PHASE_MAINSIM, self.num_paths_mainsim)]
+        if self.requires_regression:
+            phases.append((rng.PHASE_PRESIM, self.num_paths_presim))
+        return phases
+
+    def _kernel_ad_fns(self, num_paths: int, phase: int):
+        """(forward_coarse, noise_fn, recon_fn) of the differentiated kernel
+        route for one phase (controller.py:1192-1257)."""
+        dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
+                                  self.num_steps)
+        scheme = self.simulation_scheme
+        if self.model.kernel_ad_mode(scheme) == "emit":
+            def noise_forward(p):
+                return self.model.kernel_paths_with_noise(
+                    p, scheme, dense, num_paths, seed=self.root_seed, phase=phase)
+
+            return emitted_noise_fns(self.model, scheme, self.simulation_timeline,
+                                     num_paths, self.num_steps, noise_forward)
+
+        def dense_forward(p):
+            return self.model.kernel_paths(p, scheme, dense, num_paths, 1,
+                                           seed=self.root_seed, phase=phase)
+
+        return recovered_noise_fns(self.model, scheme, self.simulation_timeline,
+                                   num_paths, self.num_steps, dense_forward)
+
+    def _kernel_noise_of(self, params):
+        """Frozen draws {phase: noise} of the differentiated kernel route: one
+        kernel run and one noise recovery per phase, outside every tangent
+        sweep (controller.py:1259-1271)."""
+        return {phase: self._kernel_ad_fns(n, phase)[1](params) for phase, n in self._phases()}
+
+    def _simulate_and_resolve(self, params, num_paths: int, phase: int, kernel_noise=None):
         """One simulation pass -> resolved handle lists over the [T, N, D]
         state plane."""
         if self._kernel_active:
             if self.differentiate:
                 _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
-                states = recon_fn(params, noise_fn(params))
+                noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
+                states = recon_fn(params, noise)
             else:
                 states = self.model.kernel_paths(
                     params, self.simulation_scheme, self.simulation_timeline,
@@ -193,56 +336,162 @@ class SimulationController:
             )
         return self._plan.resolve_requests(params, states)
 
-    def _kernel_ad_fns(self, num_paths: int, phase: int):
-        """(forward_coarse, noise_fn, recon_fn) of the emitted-noise AD path."""
-        dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
-                                  self.num_steps)
+    # -- LSM regression of the exposures (controller.py:399-477) --------------------
 
-        def noise_forward(p):
-            return self.model.kernel_paths_with_noise(
-                p, self.simulation_scheme, dense, num_paths,
-                seed=self.root_seed, phase=phase,
-            )
+    def _initial_hypothetical_state(self, product: Product, num_paths: int):
+        row = torch.arange(product.get_num_states(), device=self.device)
+        return row.expand(num_paths, -1)
 
-        return emitted_noise_fns(self.model, self.simulation_scheme, self.simulation_timeline,
-                                 num_paths, self.num_steps, noise_forward)
+    def _perform_regression_for_product(self, product: Product, params, resolved):
+        """Backward induction over the exposure dates: {exposure index:
+        coeffs [num_states, degree]} fitted on pre-simulation paths."""
+        product_timeline = product.product_timeline
+        num_states = product.get_num_states()
+        num_paths = self.num_paths_presim
+        dtype = real_dtype()
+        coeffs_by_date = {}
 
-    # -- valuation (reference controller.py:385-604) -------------------------------
+        last_cf_index = len(product_timeline)
+        cf_cache = {last_cf_index: torch.zeros((num_paths, num_states), dtype=dtype,
+                                               device=self.device)}
+        for t_reg in reversed(self.exposure_timeline):
+            idx = bisect_left(product_timeline, t_reg)
+            if idx >= len(product_timeline):
+                continue
+            t_next = idx + 1 if product_timeline[idx] == t_reg else idx
+            if t_next < last_cf_index:
+                # Roll the hypothetical states through the uncached window,
+                # then stitch the cached tail by state lookup.
+                state_matrix = self._initial_hypothetical_state(product, num_paths)
+                step_value = torch.zeros((num_paths, num_states), dtype=dtype, device=self.device)
+                for window_idx in range(t_next, last_cf_index):
+                    state_matrix, cfs = product.compute_normalized_cashflows(
+                        window_idx, self.model, params, resolved, self.regression_function,
+                        state_matrix)
+                    step_value = step_value + cfs
+                total_cfs = step_value + product.lookup_state_values(
+                    cf_cache[last_cf_index], state_matrix)
+                cf_cache[t_next] = total_cfs
+                last_cf_index = t_next
+            else:
+                total_cfs = cf_cache[t_next]
 
-    def _evaluate_product(self, product: Product, params, resolved) -> torch.Tensor:
-        """Numeraire-deflated cashflows [N] summed over the product's dates."""
+            numeraire = resolved[0][self.numeraire_requests[(t_reg, "numeraire")].handle]
+            explanatory = resolved[0][self.spot_requests[(t_reg, product.asset_ids[0])].handle]
+            numeraire_col = numeraire[:, None] if numeraire.dim() == 1 else numeraire
+            basis = self.regression_function.get_regression_matrix(
+                torch.broadcast_to(explanatory, (num_paths,)))
+            coeffs_by_date[self._exposure_time_to_idx[t_reg]] = fit_least_squares(
+                basis, numeraire_col * total_cfs)
+        return coeffs_by_date
+
+    # -- valuation (controller.py:877-1013) ---------------------------------------
+
+    def _evaluate_product(self, product: Product, params, resolved, coeffs_by_date):
+        """(numeraire-deflated cashflows [N], exposure profiles [E, N])."""
         num_paths = self.num_paths_mainsim
-        state_matrix = torch.full((num_paths, 1), product.get_initial_state(),
-                                  dtype=torch.long, device=self.device)
-        cfs = torch.zeros((num_paths,), dtype=real_dtype(), device=self.device)
-        for t_idx in range(len(product.product_timeline)):
-            state_matrix, new_cfs = product.compute_normalized_cashflows(
-                t_idx, self.model, params, resolved, None, state_matrix,
+        dtype = real_dtype()
+        state_matrix = torch.full((num_paths, 1), product.get_initial_state(), dtype=torch.long,
+                                  device=self.device)
+        cfs = torch.zeros((num_paths,), dtype=dtype, device=self.device)
+        exposures = []
+        product_timeline = product.product_timeline
+        t_start = 0
+
+        def advance(t_limit, state_matrix, cfs, t_start):
+            while t_start < len(product_timeline) and (
+                    t_limit is None or product_timeline[t_start] <= t_limit):
+                state_matrix, new_cfs = product.compute_normalized_cashflows(
+                    t_start, self.model, params, resolved, self.regression_function,
+                    state_matrix)
+                cfs = cfs + new_cfs[:, 0]
+                t_start += 1
+            return state_matrix, cfs, t_start
+
+        if not self.risk_metrics.requires_exposure_profiles():
+            state_matrix, cfs, t_start = advance(None, state_matrix, cfs, t_start)
+            return cfs, None
+
+        analytic = self._can_use_analytic_exposure_for_product(product)
+        zeros = torch.zeros((self.regression_function.get_degree(),), dtype=dtype,
+                            device=self.device)
+        for t in self.exposure_timeline:
+            state_matrix, cfs, t_start = advance(t, state_matrix, cfs, t_start)
+            numeraire = resolved[0][self.numeraire_requests[(t, "numeraire")].handle]
+            spot = resolved[0][self.spot_requests[(t, product.asset_ids[0])].handle]
+            if analytic:
+                exposure = product.compute_discounted_exposure_analytically(
+                    exposure_time=t, spot=spot, numeraire=numeraire, model=self.model,
+                    params=params)
+            else:
+                coeffs = coeffs_by_date.get(self._exposure_time_to_idx[t])
+                if coeffs is None:  # after the product's last cashflow
+                    coeffs = zeros.expand(product.get_num_states(), -1)
+                continuation = product.compute_continuation_values(
+                    explanatory=torch.broadcast_to(spot, (num_paths,)),
+                    regression_function=self.regression_function,
+                    state_matrix=state_matrix, coeffs_all_states=coeffs)[:, 0]
+                exposure = continuation / numeraire
+            exposures.append(torch.broadcast_to(exposure, (num_paths,)))
+        if self.risk_metrics.requires_discounted_cashflows():
+            state_matrix, cfs, t_start = advance(None, state_matrix, cfs, t_start)
+        return cfs, torch.stack(exposures)
+
+    def _zero_metric_result(self, metric: Metric):
+        n_evals = 1 if metric.metric_type in _SCALAR_METRICS else len(self.metric_exposure_timeline)
+        zero = torch.zeros((), dtype=real_dtype(), device=self.device)
+        return [(zero, zero) for _ in range(n_evals)]
+
+    def _evaluate_netting_set(self, ns_idx: int, netting_set, cfs, netted_exposures, resolved):
+        exposure_list = []
+        if netted_exposures is not None:
+            unsecured = netting_set.compute_unsecured_exposure_profiles(
+                netted_exposures=netted_exposures,
+                exposure_timeline=self.exposure_timeline,
+                metric_exposure_indices=self.metric_exposure_indices,
+                delayed_exposure_indices=self.netting_set_delayed_exposure_indices[ns_idx],
             )
-            cfs = cfs + new_cfs[:, 0]
-        return cfs
+            exposure_list = list(unsecured.unbind(0))
+        results = []
+        for metric in self.risk_metrics.metrics:
+            # CVA is gated on the counterparty (controller.py:982-989).
+            if (metric.metric_type == MetricType.CVA and netting_set.counterparty_id is not None
+                    and getattr(metric, "counterparty_id", None) != netting_set.counterparty_id):
+                results.append(self._zero_metric_result(metric))
+                continue
+            results.append(metric.evaluate(exposures=exposure_list, cfs=cfs,
+                                           resolved_requests=resolved, netting_set=netting_set,
+                                           model=self.model))
+        return results
 
-    def _evaluate_netting_set(self, netting_set, cfs, resolved):
-        return [
-            metric.evaluate(cfs=cfs, resolved_requests=resolved,
-                            netting_set=netting_set, model=self.model)
-            for metric in self.risk_metrics.metrics
-        ]
-
-    def _evaluate_products(self, params, resolved):
+    def _evaluate_products(self, params, resolved, coeffs):
+        num_ns = len(self.netting_sets)
         cfs_acc = [torch.zeros((self.num_paths_mainsim,), dtype=real_dtype(), device=self.device)
-                   for _ in self.netting_sets]
+                   for _ in range(num_ns)]
+        exp_acc: List[Optional[torch.Tensor]] = [None] * num_ns
         for prod_idx, product in enumerate(self.products):
             ns_idx = self.product_to_netting_set_idx[prod_idx]
-            cfs_acc[ns_idx] = cfs_acc[ns_idx] + self._evaluate_product(product, params, resolved)
-        return [
-            self._evaluate_netting_set(ns, cfs_acc[i], resolved)
-            for i, ns in enumerate(self.netting_sets)
-        ]
+            cfs, exposures = self._evaluate_product(product, params, resolved,
+                                                    coeffs.get(product.product_id, {}))
+            cfs_acc[ns_idx] = cfs_acc[ns_idx] + cfs
+            if exposures is not None:
+                exp_acc[ns_idx] = exposures if exp_acc[ns_idx] is None else exp_acc[ns_idx] + exposures
+        return [self._evaluate_netting_set(i, ns, cfs_acc[i], exp_acc[i], resolved)
+                for i, ns in enumerate(self.netting_sets)]
 
-    def _compute(self, params):
-        resolved = self._simulate_and_resolve(params, self.num_paths_mainsim, rng.PHASE_MAINSIM)
-        return self._evaluate_products(params, resolved)
+    def _compute(self, params, kernel_noise=None):
+        coeffs = {}
+        if self.requires_regression:
+            resolved_pre = self._simulate_and_resolve(params, self.num_paths_presim,
+                                                      rng.PHASE_PRESIM, kernel_noise)
+            for product in self.products:
+                if self._product_requires_regression(product):
+                    coeffs[product.product_id] = self._perform_regression_for_product(
+                        product, params, resolved_pre)
+            del resolved_pre  # free the pre-simulation before the main one
+        resolved = self._simulate_and_resolve(params, self.num_paths_mainsim,
+                                              rng.PHASE_MAINSIM, kernel_noise)
+        return self._evaluate_products(params, resolved, coeffs)
 
     @staticmethod
     def _flatten(nested):
@@ -255,37 +504,67 @@ class SimulationController:
         return torch.stack(values), torch.stack(errors)
 
     def _result_spec(self):
-        # PV-only books: one evaluation per metric and netting set.
-        return [[1 for _ in self.risk_metrics.metrics] for _ in self.netting_sets]
+        """Evaluations per (netting set, metric) (controller.py:2360-2373)."""
+        n_dates = len(self.metric_exposure_timeline)
+        return [[1 if m.metric_type in _SCALAR_METRICS else n_dates
+                 for m in self.risk_metrics.metrics] for _ in self.netting_sets]
 
-    # -- public entry point (reference controller.py:663-709) -------------------------
+    # -- sensitivities --------------------------------------------------------------
+
+    def _jacobian(self, params):
+        """(values [V], errors [V], jacobian [P, V]) of the differentiated run."""
+        n_params = len(params)
+        n_values = sum(n for ns in self._result_spec() for n in ns)
+        kernel_noise = self._kernel_noise_of(params) if self._kernel_active else None
+        self._grad_mode_resolved = "fwd" if n_params <= n_values else "rev"
+
+        def pair(p):
+            return self._flatten(self._compute(p, kernel_noise))
+
+        if self._grad_mode_resolved == "rev":
+            params = tuple(p.detach().requires_grad_(True) for p in params)
+            values, errors = pair(params)
+            cotangents = torch.eye(values.shape[0], dtype=values.dtype, device=values.device)
+            grads = torch.autograd.grad(values, params, grad_outputs=cotangents,
+                                        is_grads_batched=True)
+            return values.detach(), errors.detach(), torch.stack(grads)
+
+        def sweep(tangent):
+            values, dvalues, errors = jvp(pair, (params,), (tangent,), has_aux=True)
+            return values, errors, dvalues
+
+        eye = torch.eye(n_params, dtype=params[0].dtype, device=params[0].device)
+        rows, values, errors = [], None, None
+        for start in range(0, n_params, self.grad_chunk_size):
+            basis = eye[start:start + self.grad_chunk_size]  # [c, P]
+            values_c, errors_c, rows_c = vmap(sweep)(tuple(basis.unbind(1)))
+            values, errors = values_c[0], errors_c[0]
+            rows.append(rows_c)
+        return values, errors, torch.cat(rows)
+
+    # -- public entry point (controller.py:2253-2358) -------------------------------
 
     def run_simulation(self) -> SimulationResults:
         t0 = time.perf_counter()
         if self._plan is None:
             self._plan = RequestPlan(self.model)
             self._plan.collect_and_index_requests(
-                self.products, self.simulation_timeline, {}, (),
+                self.products, self.simulation_timeline, self._get_requests(),
+                self.metric_exposure_timeline,
             )
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
 
         t1 = time.perf_counter()
-        grads = None
+        jac_np = None
         if self.differentiate:
-            params = tuple(p.requires_grad_(True) for p in params)
-            values, errors = self._flatten(self._compute(params))
-            t2 = time.perf_counter()
-            cotangents = torch.eye(values.shape[0], dtype=values.dtype, device=values.device)
-            grads = torch.autograd.grad(values, params, grad_outputs=cotangents,
-                                        is_grads_batched=True)
-            grads_np = [g.detach().cpu().numpy() for g in grads]  # per param: [V]
+            values, errors, jac = self._jacobian(params)
+            jac_np = jac.detach().cpu().numpy()  # [P, V]
         else:
             with torch.no_grad():
                 values, errors = self._flatten(self._compute(params))
-            t2 = time.perf_counter()
         values_np = values.detach().cpu().numpy()
         errors_np = errors.detach().cpu().numpy()
-        t3 = time.perf_counter()
+        t2 = time.perf_counter()
 
         results, derivatives = [], []
         flat_idx = 0
@@ -296,27 +575,26 @@ class SimulationController:
                 evals, devals = [], []
                 for _ in range(n_evals):
                     evals.append((values_np[flat_idx], errors_np[flat_idx]))
-                    if grads is not None:
-                        devals.append(tuple(grads_np[p][flat_idx] for p in range(n_params)))
+                    if jac_np is not None:
+                        devals.append(tuple(jac_np[p, flat_idx] for p in range(n_params)))
                     flat_idx += 1
                 ns_results.append(evals)
                 ns_derivs.append(devals)
             results.append(ns_results)
             derivatives.append(ns_derivs)
 
-        t4 = time.perf_counter()
+        t3 = time.perf_counter()
         logger.info(
             "Simulation completed for %d netting set(s) and %d product(s) on %s "
-            "(%s paths): preprocessing=%.6fs pipeline=%.6fs differentiation=%.6fs "
-            "postprocessing=%.6fs total=%.6fs",
+            "(%s paths): preprocessing=%.6fs pipeline=%.6fs postprocessing=%.6fs total=%.6fs",
             len(self.netting_sets), len(self.products), self.device,
             "kernel" if self._kernel_active else "engine",
-            t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0,
+            t1 - t0, t2 - t1, t3 - t2, t3 - t0,
         )
 
         return SimulationResults(
             results,
-            derivatives if grads is not None else [],
+            derivatives if jac_np is not None else [],
             [],
             netting_set_names=self._make_unique_names([ns.get_name() for ns in self.netting_sets]),
             metric_names=self._make_unique_names([m.get_name() for m in self.risk_metrics.metrics]),

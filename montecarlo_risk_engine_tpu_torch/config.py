@@ -7,8 +7,9 @@ PyTorch counterpart of ``montecarlo_risk_engine_tpu/config.py``.
     The path kernel itself is float32 (``ops/heston_qe.py``); its outputs are
     cast to the working dtype, as the JAX controller does.
   * Placement is an explicit ``torch.device``: the controller and the engine
-    take a ``device`` argument.  :func:`resolve_device` raises when CUDA is
-    asked for and absent — a run never falls back to the CPU silently.
+    take a ``device`` argument.  The default is the card: :func:`resolve_device`
+    maps ``None`` to CUDA and raises when CUDA is absent, so a run takes the
+    CPU only when the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,11 +26,9 @@ def real_dtype() -> torch.dtype:
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
-    """``None`` picks CUDA when present, else the CPU; an explicit CUDA
-    request without a usable card raises."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """``None`` means the card.  A CUDA request (explicit or by default)
+    without a usable card raises; the CPU is used only when asked for."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device

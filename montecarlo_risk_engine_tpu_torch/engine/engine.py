@@ -40,15 +40,20 @@ def build_step_schedule(calibration_date: float, timeline: Sequence[float]):
 def philox_noise_source(model, scheme, num_paths: int, phase: int, root_seed: int,
                         dtype: torch.dtype, device) -> Callable:
     """The default noise source: ``counter -> (z, u)`` from the Philox
-    stream keyed (root_seed, phase), the draws of the CUDA path kernel."""
-    if model.simulation_dim > 2:
-        raise NotImplementedError("the Philox noise source draws at most 2 normals per substep")
-    needs_uniform = model.uses_uniforms(scheme)
+    stream keyed (root_seed, phase), the draws of the CUDA path kernels:
+    ``sim_dim`` normals per substep (rng.substep_normals) and, for models
+    that consume one (Heston QE), the uniform of word 2 (rng.substep_draws)."""
+    sim_dim = model.simulation_dim
+    if model.uses_uniforms(scheme) and sim_dim > 2:
+        raise NotImplementedError(
+            "the Philox stream has no uniform beside more than 2 normals per substep")
 
     def source(counter: int):
-        z_s, z_v, u = rng.substep_draws(root_seed, phase, counter, num_paths, dtype, device)
-        z = torch.stack([z_s, z_v][: model.simulation_dim], dim=-1)
-        return z, (u if needs_uniform else None)
+        if model.uses_uniforms(scheme):
+            z_s, z_v, u = rng.substep_draws(root_seed, phase, counter, num_paths, dtype, device)
+            return torch.stack([z_s, z_v][:sim_dim], dim=-1), u
+        return rng.substep_normals(root_seed, phase, counter, num_paths, sim_dim, dtype,
+                                   device), None
 
     return source
 

@@ -1,20 +1,26 @@
-"""Risk metrics: PV and the RiskMetrics container.
+"""Risk metrics: PV, CE, EPE, ENE, EEPE, PFE, CVA and the RiskMetrics container.
 
-Counterpart of ``montecarlo_risk_engine_tpu/metrics/metrics.py`` for the PV
-slice (exposure metrics and CVA come with the netting/exposure pipeline).
+Counterpart of ``montecarlo_risk_engine_tpu/metrics/metrics.py``.
 Conventions kept: every metric returns a list of (value, mc_error) pairs,
 one per evaluation point; MC error = unbiased std / sqrt(N)
-(reference metric.py:26-35).  Sums use ``torch.sum`` — the JAX package's
-fixed pairwise order exists for its sharding-determinism contract, which the
-port does not carry yet.
+(reference metric.py:26-35); PFE is the order statistic
+``sorted[ceil(q N) - 1]`` with the density finite-difference error; EEPE the
+plain time average of EE (quirk Q6) unless ``effective``; CVA accumulates
+``E+(t_k) S(0, t_k) (1 - S(t_k, t_k+1))`` times (1 - recovery).  Sums use
+``torch.sum`` — the JAX package's fixed pairwise order exists for its
+sharding-determinism contract, which the port does not carry yet.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Sequence, Tuple
+import math
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType
 
 
 class MetricType(enum.Enum):
@@ -53,6 +59,15 @@ class Metric:
     def get_name(self) -> str:
         return self.metric_type.name.lower()
 
+    def set_requests(self, exposure_timeline) -> None:
+        pass
+
+    def get_requests(self) -> Dict[Tuple[int, str], List[AtomicRequest]]:
+        return defaultdict(list)
+
+    def get_counterparty_ids(self) -> Optional[List[str]]:
+        return None
+
     def evaluate_analytically(self, **kwargs):
         raise NotImplementedError("Analytical evaluation not implemented.")
 
@@ -79,6 +94,167 @@ class PVMetric(Metric):
         return [mc_mean_and_error(cfs)]
 
 
+class CEMetric(Metric):
+    """Current exposure: relu of the first exposure date (quirk Q10)."""
+
+    def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
+        super().__init__(MetricType.CE, evaluation_type)
+
+    def evaluate_numerically(self, exposures=None, **kwargs):
+        return [mc_mean_and_error(torch.clamp(exposures[0], min=0.0))]
+
+
+class EPEMetric(Metric):
+    def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
+        super().__init__(MetricType.EPE, evaluation_type)
+
+    def evaluate_numerically(self, exposures=None, **kwargs):
+        return [mc_mean_and_error(torch.clamp(e, min=0.0)) for e in exposures]
+
+
+class ENEMetric(Metric):
+    def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
+        super().__init__(MetricType.ENE, evaluation_type)
+
+    def evaluate_numerically(self, exposures=None, **kwargs):
+        return [mc_mean_and_error(-torch.clamp(-e, min=0.0)) for e in exposures]
+
+
+class EEPEMetric(Metric):
+    """Time average of per-date EE (quirk Q6); ``effective=True`` takes the
+    running maximum of EE first (the regulatory variant)."""
+
+    def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL,
+                 effective: bool = False):
+        super().__init__(MetricType.EEPE, evaluation_type)
+        self.effective = bool(effective)
+
+    def get_name(self) -> str:
+        return "eepe[effective]" if self.effective else "eepe"
+
+    def evaluate_numerically(self, exposures=None, **kwargs):
+        per_date_ee = torch.stack([torch.clamp(e, min=0.0).sum() / e.shape[0] for e in exposures])
+        if self.effective:
+            per_date_ee = torch.cummax(per_date_ee, dim=0).values
+        return [mc_mean_and_error(per_date_ee)]
+
+
+# Above this many paths PFE takes the bisection order statistic
+# (ops/quantile.order_statistics_bisect) instead of a sort: the same value
+# (metrics.py:224-232).
+PFE_BISECT_THRESHOLD = 131_072
+
+
+class PFEMetric(Metric):
+    """PFE quantile per exposure date (metrics.py:235-336).
+
+    ``pfe_se``: ``"density-fd"`` (default, the reference's density finite
+    difference, kept for parity although it is not a consistent estimator)
+    or ``"order-statistic"`` (the +-1-sigma binomial bracket)."""
+
+    def __init__(self, quantile: float = 0.95,
+                 evaluation_type: EvaluationType = EvaluationType.NUMERICAL,
+                 bisect_threshold: Optional[int] = None, pfe_se: str = "density-fd"):
+        super().__init__(MetricType.PFE, evaluation_type)
+        self.quantile = float(quantile)
+        self.bisect_threshold = (PFE_BISECT_THRESHOLD if bisect_threshold is None
+                                 else int(bisect_threshold))
+        if pfe_se not in ("density-fd", "order-statistic"):
+            raise ValueError(f"pfe_se must be 'density-fd' or 'order-statistic', got {pfe_se!r}")
+        self.pfe_se = pfe_se
+
+    def get_name(self) -> str:
+        return f"pfe[{self.quantile:g}]"
+
+    def _quantile_se(self, below, pfe, above, n: int, q_index: int):
+        if q_index == 0 or q_index == n - 1:
+            return torch.zeros_like(pfe)
+        f_q = torch.clamp((above - below) / 2.0, min=1e-6)
+        se = torch.sqrt(self.quantile * (1.0 - self.quantile) / (n * f_q * f_q))
+        flat = (below == pfe) & (above == pfe)
+        return torch.where(flat, torch.zeros_like(se), se)
+
+    def _bracket_indices(self, n: int):
+        m = self.quantile * n
+        half = math.sqrt(n * self.quantile * (1.0 - self.quantile))
+        k_lo = min(max(int(math.ceil(m - half)) - 1, 0), n - 1)
+        k_hi = min(max(int(math.ceil(m + half)) - 1, 0), n - 1)
+        return k_lo, k_hi
+
+    def evaluate_numerically(self, exposures=None, **kwargs):
+        if len(exposures) == 0:
+            return []
+        n = exposures[0].shape[0]
+        q_index = int(math.ceil(self.quantile * n)) - 1
+        if self.pfe_se == "order-statistic":
+            se_ks = self._bracket_indices(n)
+        else:
+            se_ks = (max(q_index - 1, 0), min(q_index + 1, n - 1))
+        ks = sorted({se_ks[0], q_index, se_ks[1]})
+        stacked = torch.stack(exposures)  # [T, N]
+        if n > self.bisect_threshold:
+            from montecarlo_risk_engine_tpu_torch.ops.quantile import order_statistics_bisect
+
+            stats = order_statistics_bisect(stacked, ks)  # [K, T]
+        else:
+            sorted_vals = torch.sort(stacked, dim=-1).values
+            stats = sorted_vals[:, ks].mT  # [K, T]
+        lo, pfe, hi = (stats[ks.index(k)] for k in (se_ks[0], q_index, se_ks[1]))
+        if self.pfe_se == "order-statistic":
+            se = (hi - lo) / 2.0
+        else:
+            se = self._quantile_se(lo, pfe, hi, n, q_index)
+        return [(pfe[i], se[i]) for i in range(len(exposures))]
+
+
+class CVAMetric(Metric):
+    def __init__(self, counterparty_id: str, recovery_rate: float,
+                 evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
+        super().__init__(MetricType.CVA, evaluation_type)
+        self.counterparty_id = counterparty_id
+        self.recovery_rate = float(recovery_rate)
+        self.survival_prob_requests: Dict[Tuple[int, str], AtomicRequest] = {}
+        self.cond_survival_prob_requests: Dict[Tuple[int, str], AtomicRequest] = {}
+
+    def get_counterparty_ids(self):
+        return [self.counterparty_id]
+
+    def get_name(self) -> str:
+        return f"cva[{self.counterparty_id}]"
+
+    def set_requests(self, exposure_timeline) -> None:
+        # One (unconditional, conditional) survival pair per exposure interval
+        # (cva_metric.py:23-44); integer keys index the exposure timeline.
+        cp = self.counterparty_id
+        for idx in range(len(exposure_timeline) - 1):
+            self.cond_survival_prob_requests[(idx, cp)] = AtomicRequest(
+                AtomicRequestType.CONDITIONAL_SURVIVAL_PROBABILITY,
+                time1=float(exposure_timeline[idx]), time2=float(exposure_timeline[idx + 1]))
+            self.survival_prob_requests[(idx, cp)] = AtomicRequest(
+                AtomicRequestType.SURVIVAL_PROBABILITY)
+
+    def get_requests(self):
+        requests = defaultdict(list)
+        for label, req in self.survival_prob_requests.items():
+            requests[label].append(req)
+        for label, req in self.cond_survival_prob_requests.items():
+            requests[label].append(req)
+        return requests
+
+    def evaluate_numerically(self, exposures=None, resolved_requests=None, **kwargs):
+        n_dates = len(exposures)
+        survival = [resolved_requests[0][r.handle] for r in self.survival_prob_requests.values()]
+        cond_survival = [resolved_requests[0][r.handle]
+                         for r in self.cond_survival_prob_requests.values()]
+        if len(survival) != n_dates - 1:
+            raise ValueError("CVA needs a survival probability for each exposure interval")
+        cva_pathwise = 0.0
+        for k in range(n_dates - 1):
+            default_prob = survival[k] * (1.0 - cond_survival[k])
+            cva_pathwise = cva_pathwise + torch.clamp(exposures[k], min=0.0) * default_prob
+        return [mc_mean_and_error(cva_pathwise * (1.0 - self.recovery_rate))]
+
+
 class PathwisePrimitive(enum.Enum):
     DISCOUNTED_CASHFLOWS = "discounted_cashflows"
     EXPOSURE_PROFILES = "exposure_profiles"
@@ -90,9 +266,11 @@ class RiskMetrics:
 
     def __init__(self, metrics: Sequence[Metric], exposure_timeline=None):
         self.metrics = list(metrics)
-        self.exposure_timeline = tuple(float(t) for t in (exposure_timeline or []))
+        self.exposure_timeline = tuple(
+            float(t) for t in (() if exposure_timeline is None else exposure_timeline))
 
         self.any_pv = any(m.metric_type == MetricType.PV for m in self.metrics)
+        self.any_xva = any(m.metric_type == MetricType.CVA for m in self.metrics)
         self.any_exposure = any(m.metric_type != MetricType.PV for m in self.metrics)
 
         required = []
@@ -105,6 +283,10 @@ class RiskMetrics:
             raise ValueError(
                 "For exposure simulation at least one exposure time point needs to be provided."
             )
+        for metric in self.metrics:
+            metric.set_requests(self.exposure_timeline)
+        self.counterparty_ids: List[str] = [
+            cp for m in self.metrics for cp in (m.get_counterparty_ids() or [])]
 
     def requires_discounted_cashflows(self) -> bool:
         return PathwisePrimitive.DISCOUNTED_CASHFLOWS in self._required

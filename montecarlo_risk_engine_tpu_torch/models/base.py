@@ -132,7 +132,30 @@ class Model:
         substep-dense timeline (one substep per point)."""
         raise NotImplementedError
 
+    def kernel_ad_mode(self, scheme: SimulationScheme) -> str:
+        """How the differentiated kernel route gets the step draws:
+        ``"invert"`` recovers them from consecutive kernel states
+        (:meth:`invert_noise`, ops/paths_ad.recovered_noise_fns), ``"emit"``
+        takes them from the noise-emitting kernel (Heston QE,
+        ops/paths_ad.emitted_noise_fns)."""
+        return "invert"
+
+    def invert_noise(self, params, scheme: SimulationScheme, t1, t2, state, next_state):
+        """The ``corr_noise`` [N, sim_dim] for which ``step(params, scheme,
+        t1, t2, state, corr_noise) == next_state`` (reference
+        models/base.py:189).  Zero where the diffusion vanishes: the draw is
+        unrecoverable there, and its tangent coefficient is 0."""
+        raise NotImplementedError(f"{type(self).__name__}: transition inversion not implemented")
+
     # -- observables --------------------------------------------------------
+
+    # Column offset into a wider joint state: ModelConfig hands sub-models the
+    # full [.., N, D] state and sets this to the sub-model's block start.
+    _col_offset: int = 0
+
+    def _col(self, state, k: int):
+        """Column ``k`` (relative to ``_col_offset``) of a [..., D] state."""
+        return state[..., k + self._col_offset]
 
     def resolve_obs(self, params, kind, asset_id: str, t1, t2, state):
         """Resolve one observable kind.  ``t1``/``t2`` may be tensors [n]
@@ -145,3 +168,12 @@ class Model:
         """Vectorised resolution of n same-kind requests on one asset:
         states_sel [n, N, state_dim] -> [n, N] (or [n])."""
         return self.resolve_obs(params, kind, asset_id, t1s, t2s, states_sel)
+
+
+def per_row(t, x):
+    """``t`` shaped to broadcast against a pathwise tensor ``x``: a float
+    stays a float, a [n] tensor of per-request times becomes [n, 1] against
+    ``x`` [n, N]."""
+    if isinstance(t, torch.Tensor) and t.dim() and x.dim() > t.dim():
+        return t.reshape(t.shape + (1,) * (x.dim() - t.dim()))
+    return t

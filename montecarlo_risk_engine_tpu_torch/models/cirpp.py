@@ -1,0 +1,168 @@
+"""CIR++ shifted square-root default-intensity model.
+
+Counterpart of ``montecarlo_risk_engine_tpu/models/cirpp.py``.  Intensity
+lambda(t) = y(t) + psi(t); y follows dy = kappa (theta - y) dt + sigma
+sqrt(y) dW, and psi(t) = lambda_market(t) + D(t) - y0 E(t) fits the market
+survival curve (D = d/dt ln A(0,t), E = d/dt B(0,t), cirpp.py:108-125).
+
+State = [y, log_B]: log_B accumulates the pathwise integral of lambda (left
+Riemann), so SURVIVAL_PROBABILITY resolves to exp(-log_B) and
+CONDITIONAL_SURVIVAL_PROBABILITY to the closed form S(t, T | y_t).  Params
+(reference order): kappa, theta, sigma, y0.  Market hazards are static
+configuration.  This slice ports the full-truncation Euler step and its
+inversion; the Milstein and analytical steps and the deterministic mode
+(``deterministic=True``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from bisect import bisect_left
+from typing import Dict
+
+import torch
+
+from montecarlo_risk_engine_tpu_torch.config import SimulationScheme
+from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
+from montecarlo_risk_engine_tpu_torch.models.base import Model, per_row
+from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
+
+
+def _like(x, ref: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+
+
+class CIRPPModel(Model):
+    def __init__(self, calibration_date: float, asset_id: str, hazard_rates: Dict[float, float],
+                 kappa: float, theta: float, volatility: float, y0: float,
+                 deterministic: bool = False):
+        super().__init__(calibration_date=calibration_date, state_dim=2, asset_ids=[asset_id])
+        if not (2.0 * kappa * theta - volatility ** 2 > 0.0 and y0 > 0.0):
+            raise ValueError("Feller condition not met.")
+        self._init = (float(kappa), float(theta), float(volatility), float(y0))
+        self.tenors = tuple(float(t) for t in hazard_rates.keys())
+        self.hazard_rates = tuple(float(h) for h in hazard_rates.values())
+        if deterministic:
+            raise NotImplementedError("the deterministic CIR++ mode is not ported yet")
+
+    def _initial_values(self):
+        return self._init
+
+    def get_model_param_names(self):
+        return ["kappa", "theta", "sigma", "y0"]
+
+    # -- market curve -------------------------------------------------------
+
+    def lambda_market(self, t: float) -> float:
+        """Piecewise-constant market hazard at a static time, flat beyond the
+        last tenor: the first tenor >= t (the reference's searchsorted,
+        side='left', cirpp.py:77-82)."""
+        idx = min(bisect_left(self.tenors, float(t)), len(self.tenors) - 1)
+        return self.hazard_rates[idx]
+
+    def _market_survival(self, t, ref: torch.Tensor) -> torch.Tensor:
+        return 1.0 - probability_of_default(_like(self.hazard_rates, ref),
+                                            _like(self.tenors, ref), _like(t, ref))
+
+    # -- CIR closed forms (cirpp.py:89-125) ---------------------------------
+
+    @staticmethod
+    def _h(params):
+        kappa, _, sigma, _ = params
+        return torch.sqrt(kappa * kappa + 2.0 * sigma * sigma)
+
+    def _A(self, params, t, T):
+        kappa, theta, sigma, _ = params
+        h = self._h(params)
+        dt = _like(T, h) - _like(t, h)
+        num = 2.0 * h * torch.exp(0.5 * (kappa + h) * dt)
+        den = 2.0 * h + (kappa + h) * (torch.exp(h * dt) - 1.0)
+        return (num / den) ** (2.0 * kappa * theta / (sigma * sigma))
+
+    def _B(self, params, t, T):
+        kappa, _, sigma, _ = params
+        h = self._h(params)
+        dt = _like(T, h) - _like(t, h)
+        e = torch.exp(h * dt) - 1.0
+        return 2.0 * e / (2.0 * h + (kappa + h) * e)
+
+    def _D(self, params, t):
+        kappa, theta, sigma, _ = params
+        h = self._h(params)
+        et = torch.exp(h * t)
+        inner = 0.5 * (kappa + h) - (h * (kappa + h) * et) / (2.0 * h + (kappa + h) * (et - 1.0))
+        return (2.0 * kappa * theta / (sigma * sigma)) * inner
+
+    def _E(self, params, t):
+        kappa, _, sigma, _ = params
+        h = self._h(params)
+        et = torch.exp(h * t)
+        return 4.0 * h * h * et / (2.0 * h + (kappa + h) * (et - 1.0)) ** 2
+
+    def psi(self, params, t: float):
+        return self.lambda_market(t) + self._D(params, t) - params[3] * self._E(params, t)
+
+    # -- simulation ---------------------------------------------------------
+
+    def init_state(self, params, num_paths):
+        y = params[3].expand(num_paths)
+        return torch.stack([y, torch.zeros_like(y)], dim=-1)
+
+    def step_euler(self, params, t1, t2, state, corr_noise):
+        # Full-truncation Euler with the lambda accumulator (cirpp.py:206-218).
+        dt = t2 - t1
+        y = state[:, 0]
+        kappa, theta, sigma, _ = params
+        noise = corr_noise[:, 0]
+        sqrt_y = torch.sqrt(torch.clamp(y, min=0.0))
+        y_next = y + kappa * (theta - y) * dt + sigma * sqrt_y * math.sqrt(dt) * noise
+        log_b = state[:, 1] + (y + self.psi(params, t1)) * dt
+        return torch.stack([torch.clamp(y_next, min=1e-12), log_b], dim=-1)
+
+    def invert_noise(self, params, scheme, t1, t2, state, next_state):
+        # Euler residual of y (cirpp.py:189-204).  Where the diffusion
+        # vanishes (y <= 0 under full truncation) the draw is unrecoverable
+        # and its tangent coefficient is 0, so it is returned as 0.
+        #
+        # A step that landed on the 1e-12 floor has lost its draw too: every
+        # pre-floor value at or below the floor gives the same state.  The
+        # residual of the floor value itself would put the reconstruction's
+        # pre-floor value on the kink, within rounding of the floor, where
+        # the max takes the tangent of the unfloored branch on some paths
+        # (the JAX package's inversion does this, and its recovered tangents
+        # then differ from direct AD).  So the noise returned there puts the
+        # pre-floor value at -(|y| + |drift|), below the floor by the size of
+        # the step's own terms: a reconstruction from states that carry the
+        # float32 kernel's rounding (~1e-8 relative) still takes the floor,
+        # whose tangent, 0, is the pathwise derivative.
+        if scheme != SimulationScheme.EULER:
+            raise NotImplementedError("CIRPPModel inverts the Euler step only")
+        kappa, theta, sigma, _ = params
+        dt = t2 - t1
+        y, y_next = state[:, 0:1], next_state[:, 0:1]
+        diff = sigma * torch.sqrt(torch.clamp(y, min=0.0)) * math.sqrt(dt)
+        drift = kappa * (theta - y) * dt
+        target = torch.where(y_next <= 1e-12, -(y.abs() + drift.abs()), y_next)
+        raw = target - y - drift
+        live = diff > 0.0
+        return torch.where(live, raw / torch.where(live, diff, torch.ones_like(diff)),
+                           torch.zeros_like(raw))
+
+    # -- survival quantities (cirpp.py:296-311) -----------------------------
+
+    def survival_probability(self, params, t, T, y_t):
+        """S(t, T | y_t); ``t``/``T`` floats or [n] tensors against y_t [n, N]."""
+        y0 = params[3]
+        a0t, a0T = self._A(params, 0.0, t), self._A(params, 0.0, T)
+        b0t, b0T = self._B(params, 0.0, t), self._B(params, 0.0, T)
+        sm_t, sm_T = self._market_survival(t, y0), self._market_survival(T, y0)
+        a_tT, b_tT = self._A(params, t, T), self._B(params, t, T)
+        pref = (sm_T / sm_t) * (a0t / a0T) * torch.exp(-b0t * y0 + b0T * y0)
+        return per_row(pref * a_tT, y_t) * torch.exp(-per_row(b_tT, y_t) * y_t)
+
+    def resolve_obs(self, params, kind, asset_id, t1, t2, state):
+        if kind == AtomicRequestType.SURVIVAL_PROBABILITY:
+            return torch.exp(-self._col(state, 1))
+        if kind == AtomicRequestType.CONDITIONAL_SURVIVAL_PROBABILITY:
+            return self.survival_probability(params, t1, t2, self._col(state, 0))
+        raise NotImplementedError(f"Request type {kind} not supported by CIRPPModel.")

@@ -86,6 +86,11 @@ class HestonModel(Model):
         # 0.3/0.5 when perform_smoothing) but has no eq.-44 branch.
         return scheme == SimulationScheme.QE and not self.martingale_correction
 
+    def kernel_ad_mode(self, scheme):
+        # QE branch mixing and the uniform make the step non-invertible: the
+        # kernel ships its draws instead.
+        return "emit"
+
     def _check_kernel(self, scheme):
         if not self.supports_kernel_paths(scheme):
             raise ValueError(
@@ -206,7 +211,7 @@ class HestonModel(Model):
         # heston.py:255-280: spot from log-state, constant-rate closed forms.
         _, _, rate, *_ = self._unpack(params)
         if kind == AtomicRequestType.SPOT:
-            return torch.exp(state[..., 0])
+            return torch.exp(self._col(state, 0))
         if kind == AtomicRequestType.DISCOUNT_FACTOR:
             return torch.exp(-rate * (t1 - self.calibration_date))
         if kind == AtomicRequestType.FORWARD_RATE:

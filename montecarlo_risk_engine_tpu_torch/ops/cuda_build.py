@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -58,26 +58,39 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_library(name: str) -> BuiltLibrary:
-    """Compile (if needed) and load ``csrc/<name>.cu``."""
-    if name in _loaded:
-        return _loaded[name]
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    build_seconds, log = None, ""
-    if not out.exists():
+def load_libraries(names: Iterable[str]) -> Dict[str, BuiltLibrary]:
+    """Compile (where needed) and load ``csrc/<name>.cu`` for every name;
+    the missing builds run as concurrent nvcc processes."""
+    names = list(dict.fromkeys(names))
+    pending = {}
+    for name in names:
+        if name in _loaded:
+            continue
+        src = CSRC_DIR / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if out.exists():
+            _loaded[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, None, "")
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, src, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, src, tmp, out, t0) in pending.items():
+        log, _ = proc.communicate()
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+            failures.append(f"nvcc failed for {src.name}:\n{log}")
+            continue
         os.replace(tmp, out)
-    built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
-    _loaded[name] = built
-    return built
+        _loaded[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: _loaded[name] for name in names}
 
+
+def load_library(name: str) -> BuiltLibrary:
+    """Compile (if needed) and load ``csrc/<name>.cu``."""
+    return load_libraries([name])[name]

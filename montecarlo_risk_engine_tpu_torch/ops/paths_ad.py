@@ -1,23 +1,28 @@
-"""Differentiable kernel paths: emitted-noise reconstruction (Heston QE).
+"""Differentiable kernel paths: noise recovery and reconstruction.
 
 Counterpart of ``montecarlo_risk_engine_tpu/ops/pallas_paths_ad.py``
-(``dense_timeline``, ``_coarse_slots`` and ``emitted_noise_fns``; the
-recovered-noise variant for invertible models comes with the hybrid kernel).
+(``dense_timeline``, ``_coarse_slots``, ``recovered_noise_fns`` and
+``emitted_noise_fns``).
 
-  1. The noise-emitting kernel runs under ``torch.no_grad()`` on the
-     substep-dense timeline (every substep boundary an emission point, one
-     substep per point).  That gives the primal states and the frozen draws
-     (z, u).
-  2. ``model.step`` re-runs in plain torch on those draws with parameters
-     that require grad, ``perform_smoothing`` set.  The draws do not depend
-     on the parameters, so autograd through this reconstruction is the exact
-     pathwise derivative of the kernel's own trajectory.
-  3. Only the coarse timeline points are returned.
+  1. The path kernel runs without grad on the substep-dense timeline (every
+     substep boundary an emission point, one substep per point).
+  2. The draws of every step are frozen: recovered from consecutive kernel
+     states by ``model.invert_noise`` and a triangular solve against the
+     noise transform L(params) (:func:`recovered_noise_fns`: Black-Scholes,
+     Vasicek, CIR++ and their ModelConfig hybrids), or taken from the
+     noise-emitting kernel (:func:`emitted_noise_fns`: Heston QE, whose
+     branch mixing is not invertible).
+  3. ``model.step`` re-runs in plain torch on the frozen draws with
+     parameters that carry tangents or require grad.  The draws do not
+     depend on the parameters, so AD through this reconstruction is the
+     exact pathwise derivative of the kernel's own trajectory.  Only the
+     coarse timeline points are returned.
 
 A timeline point at zero distance from its predecessor gets one dense entry
 and draws nothing.  The dense run's draw counters are dense indices, so on a
 timeline with such points it is a different (equally valid) stream from the
-coarse forward run.
+coarse forward run.  The JAX package's streaming mode (``_rows_recon``)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from montecarlo_risk_engine_tpu_torch.ops.noise import correlate_noise
 
 
 def dense_timeline(calibration_date: float, timeline: Sequence[float], num_steps: int):
@@ -64,6 +71,81 @@ def _coarse_slots(num_dense: int, orig_idx) -> np.ndarray:
     return slots
 
 
+def _schedule(calibration_date: float, dense):
+    """Per dense step (t_prev, dt) on the host; dt = 0 for a repeated point."""
+    out, t_prev = [], float(calibration_date)
+    for t in dense:
+        out.append((t_prev, float(t) - t_prev))
+        t_prev = float(t)
+    return out
+
+
+def _reconstruct(model, scheme, dense, slots, num_coarse, num_paths, params, z, u=None):
+    """Coarse states [T, N, D] rebuilt from the frozen standard normals z
+    [T', N, sim_dim] (and uniforms u [T', N]) by ``model.step`` in the
+    dtype of ``params``."""
+    dtype = params[0].dtype
+    state = model.init_state(params, num_paths).to(dtype)
+    chol = model.noise_transform(params, scheme).to(dtype)
+    coarse = [None] * num_coarse
+    for i, (t_prev, dt) in enumerate(_schedule(model.calibration_date, dense)):
+        if dt > 0.0:
+            noise = correlate_noise(z[i].to(dtype), chol)
+            state = model.step(params, scheme, t_prev, t_prev + dt, state, noise,
+                               None if u is None else u[i].to(dtype))
+        coarse[slots[i]] = state
+    return torch.stack(coarse)
+
+
+def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
+                        forward_fn: Callable):
+    """(forward_coarse, noise_fn, recon_fn) for invertible transitions.
+
+    ``forward_fn(params) -> [T', N, D]`` runs the path kernel on the
+    substep-dense timeline (tests substitute the engine).
+
+      * ``forward_coarse(params)``: kernel states at the original points;
+      * ``noise_fn(params)``: the frozen standard normals z [T', N, sim_dim],
+        recovered without grad in the dtype of ``params``: the correlated
+        noise of each step by ``model.invert_noise`` on consecutive states
+        (dt = 1 stands in at zero-length steps, whose noise is unused), then
+        z = L^-1 noise by ``torch.linalg.solve_triangular``;
+      * ``recon_fn(params, z)``: coarse states [T, N, D] rebuilt from z;
+        ``recon_fn(p, noise_fn(p))`` is the kernel's trajectory.
+    """
+    dense, orig_idx = dense_timeline(model.calibration_date, timeline, num_steps)
+    slots = _coarse_slots(len(dense), orig_idx)
+
+    def forward_coarse(params):
+        with torch.no_grad():
+            return forward_fn(params)[torch.as_tensor(orig_idx)]
+
+    def noise_fn(params):
+        with torch.no_grad():
+            params = tuple(p.detach() for p in params)
+            dtype = params[0].dtype
+            states = forward_fn(params).to(dtype)
+            prev = model.init_state(params, num_paths).to(dtype)
+            corr = []
+            for i, (t_prev, dt) in enumerate(_schedule(model.calibration_date, dense)):
+                dt_safe = dt if dt > 0.0 else 1.0
+                corr.append(model.invert_noise(params, scheme, t_prev, t_prev + dt_safe,
+                                               prev, states[i]))
+                prev = states[i]
+            corr = torch.stack(corr)  # [T', N, sim_dim]
+            chol = model.noise_transform(params, scheme).to(dtype)
+            # noise = z L^T row by row, so z = noise L^-T: one solve from
+            # the right over all T' N rows, contiguous in and out.
+            z = torch.linalg.solve_triangular(chol.mT, corr.reshape(-1, corr.shape[-1]),
+                                              upper=True, left=False)
+        return z.reshape(corr.shape)
+
+    def recon_fn(params, z):
+        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z)
+
+    return forward_coarse, noise_fn, recon_fn
+
+
 def emitted_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
                       forward_fn: Callable):
     """(forward_coarse, noise_fn, recon_fn) for non-invertible transitions.
@@ -91,18 +173,6 @@ def emitted_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
 
     def recon_fn(params, noise):
         z, u = noise
-        dtype = params[0].dtype
-        state = model.init_state(params, num_paths).to(dtype)
-        chol = model.noise_transform(params, scheme).to(dtype)
-        coarse = [None] * len(orig_idx)
-        t_prev = float(model.calibration_date)
-        for i, t in enumerate(dense):
-            if t - t_prev > 0.0:
-                noise_i = z[i].to(dtype) @ chol.mT
-                state = model.step(params, scheme, t_prev, t_prev + (t - t_prev),
-                                   state, noise_i, u[i].to(dtype))
-            coarse[slots[i]] = state
-            t_prev = t
-        return torch.stack(coarse)
+        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z, u)
 
     return forward_coarse, noise_fn, recon_fn

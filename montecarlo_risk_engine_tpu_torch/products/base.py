@@ -1,8 +1,9 @@
 """Product base class: timelines, request declaration, valuation hooks.
 
-Counterpart of ``montecarlo_risk_engine_tpu/products/base.py`` (request
-bookkeeping and the valuation protocol; the LSM continuation-value helpers
-come with the exercise products).
+Counterpart of ``montecarlo_risk_engine_tpu/products/base.py``: request
+bookkeeping, the valuation protocol and the LSM continuation-value helpers
+the exposure profiles use (the scan protocol of exercise products is not
+ported yet).
 
   * ``compute_normalized_cashflows`` returns cashflows already divided by the
     pathwise numeraire, so everything is discounted to t = 0.
@@ -18,6 +19,8 @@ from __future__ import annotations
 import enum
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from montecarlo_risk_engine_tpu_torch.requests import (
     AtomicRequest,
@@ -108,6 +111,24 @@ class Product:
     def get_product_family(self) -> ProductFamily:
         return self.product_family
 
+    def lookup_state_values(self, values_by_state, state_matrix):
+        """Per-state values at the given integer states (product.py:150-155):
+        values_by_state [N, S], state_matrix [N, K]."""
+        if values_by_state.shape[1] == 1 and state_matrix.shape[1] == 1:
+            return values_by_state  # single-state products: the identity
+        return torch.gather(values_by_state, 1, state_matrix.long())
+
+    # -- continuation values (product.py:157-184) -----------------------------
+
+    def evaluate_regression_grid(self, explanatory, regression_function, coeffs_all_states):
+        """[N, S] continuation values: basis(x) @ coeffs[S, deg].T."""
+        return regression_function.get_regression_matrix(explanatory) @ coeffs_all_states.mT
+
+    def compute_continuation_values(self, explanatory, regression_function, state_matrix,
+                                    coeffs_all_states):
+        grid = self.evaluate_regression_grid(explanatory, regression_function, coeffs_all_states)
+        return self.lookup_state_values(grid, state_matrix)
+
     # -- resolved-request access (product.py:105-135) --------------------------
 
     def get_resolved_atomic_request(
@@ -142,3 +163,7 @@ class Product:
 
     def supports_analytic_exposure(self, model) -> bool:
         return False
+
+    def compute_discounted_exposure_analytically(self, exposure_time, spot, numeraire, model,
+                                                 params):
+        raise NotImplementedError

@@ -2,8 +2,9 @@
 
 Counterpart of ``montecarlo_risk_engine_tpu/products/european_option.py``:
 terminal payoff on a composite underlying value, the Black-Scholes closed
-form, and the Heston characteristic-function pricer (a host-side numpy/scipy
-oracle).
+form and the pathwise analytic exposure it gives under a Black-Scholes
+model, and the Heston characteristic-function pricer (a host-side
+numpy/scipy oracle).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 from scipy.integrate import quad
 
+from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
 from montecarlo_risk_engine_tpu_torch.models.heston import HestonModel
 from montecarlo_risk_engine_tpu_torch.products.base import (
     OptionType,
@@ -75,6 +77,19 @@ class EuropeanOption(Product):
         if self.option_type == OptionType.CALL:
             return spot * ndtr(d1) - disc_k * ndtr(d2)
         return disc_k * ndtr(-d2) - spot * ndtr(-d1)
+
+    def supports_analytic_exposure(self, model) -> bool:
+        return isinstance(model, BlackScholesModel)
+
+    def compute_discounted_exposure_analytically(self, exposure_time, spot, numeraire, model,
+                                                 params):
+        """Discounted Black-Scholes value on each path (european_option.py:102-110)."""
+        tau = self.exercise_date - float(exposure_time)
+        spot = torch.reshape(spot, (-1,))
+        if tau <= 0.0:
+            return torch.zeros_like(spot)
+        _, sigma, rate = params
+        return self.bs_price(spot, rate, sigma, tau) / torch.reshape(numeraire, (-1,))
 
     # -- Heston semi-analytic price (host-side oracle) ----------------------------
     # Stable characteristic-function form (european_option.py:156-262): the

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from montecarlo_risk_engine_tpu_torch.ops.gather import gather_rows
+from montecarlo_risk_engine_tpu_torch.ops.gather import RowSelection
 
 
 class AtomicRequestType(enum.Enum):
@@ -182,13 +182,14 @@ class RequestPlan:
         self.num_composite_requests = len(composite_handles)
 
     def resolve_requests(self, params, states: torch.Tensor) -> list:
-        """Resolve every request against the [T, N, state_dim] state plane.
+        """Resolve every request against the state plane: a [T, N, D]
+        tensor or a sequence of T [N, D] states.
 
         Returns ``[resolved_atomics, resolved_composites]``, lists indexed by
         handle; each entry broadcasts against [N] (state-independent
         observables stay 0-d).  Resolution is batched by (asset, kind): all
-        requests of one kind on one asset become one gather and one
-        vectorised closed form.
+        requests of one kind on one asset become one vectorised closed form
+        over their rows, gathered column by column (ops/gather.RowSelection).
         """
         groups: Dict[Tuple[str, AtomicRequestType], list] = defaultdict(list)
         for (time_idx, asset_id), reqs in self.atomic_by_label.items():
@@ -199,10 +200,10 @@ class RequestPlan:
         for (asset_id, kind), rows in groups.items():
             tidx = [r[0] for r in rows]
             t1s = torch.tensor([0.0 if r[1].time1 is None else r[1].time1 for r in rows],
-                               dtype=states.dtype, device=states.device)
+                               dtype=states[0].dtype, device=states[0].device)
             t2s = torch.tensor([0.0 if r[1].time2 is None else r[1].time2 for r in rows],
-                               dtype=states.dtype, device=states.device)
-            states_sel = gather_rows(states, tidx)
+                               dtype=states[0].dtype, device=states[0].device)
+            states_sel = RowSelection(states, tidx)
             out = self.model.resolve_request_rows(params, kind, asset_id, t1s, t2s, states_sel)
             for i, (_, req) in enumerate(rows):
                 resolved[req.handle] = out[i]

@@ -11,6 +11,10 @@ the plain version and the kernel draw the same words:
 
 One Philox call per path-substep gives four 32-bit words: words 0 and 1 feed
 a Box-Muller pair (the correlated driver normals), word 2 the QE uniform.
+Models with more noise factors (``sim_dim > 2``, the hybrid books) make call
+number ``c`` at counter (path, substep, c, 0) for normals ``4c .. 4c+3``:
+words 0/1 and 2/3 each feed one Box-Muller pair (:func:`substep_normals`).
+For ``sim_dim <= 2`` those are exactly the normals of :func:`substep_draws`.
 Every draw is a pure function of (seed, phase, path, substep), so pre-sim and
 main-sim streams never collide and a path's draws do not depend on how many
 paths the run has.
@@ -103,3 +107,33 @@ def substep_draws(seed: int, phase: int, counter: int, num_paths: int,
     w0, w1, w2, _ = philox4x32_10((paths, step, zero, zero), (seed, phase))
     z_s, z_v = box_muller(uniform_from_word(w0, dtype), uniform_from_word(w1, dtype))
     return z_s, z_v, uniform_from_word(w2, dtype)
+
+
+def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim: int,
+                    dtype: torch.dtype, device) -> torch.Tensor:
+    """``sim_dim`` standard normals for one substep of every path, [N, sim_dim].
+
+    Call ``c`` at counter (path, counter, c, 0) gives normals 4c .. 4c+3:
+    (w0, w1) -> (r cos, r sin), then (w2, w3) likewise; the stream of the
+    hybrid path kernel (csrc/hybrid_paths.cu).  Only the normals asked for
+    are computed, so an odd ``sim_dim`` takes the cosine half of its last
+    pair."""
+    paths = torch.arange(num_paths, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    step = torch.full((), int(counter) & _MASK32, dtype=torch.int64, device=device)
+    cols = []
+    for call in range(-(-sim_dim // 4)):
+        words = philox4x32_10(
+            (paths, step, torch.full((), call, dtype=torch.int64, device=device), zero),
+            (seed, phase))
+        for pair in range(2):
+            if len(cols) >= sim_dim:
+                break
+            u1 = uniform_from_word(words[2 * pair], dtype)
+            u2 = uniform_from_word(words[2 * pair + 1], dtype)
+            r = torch.sqrt(-2.0 * torch.log(u1))
+            theta = u2 * _TWO_PI
+            cols.append(r * torch.cos(theta))
+            if len(cols) < sim_dim:
+                cols.append(r * torch.sin(theta))
+    return torch.stack(cols, dim=-1)

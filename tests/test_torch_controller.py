@@ -137,21 +137,29 @@ def test_kernel_selection_rule():
 
 
 def test_unported_features_raise():
+    # Thresholds and MPoR collateral are ported; early exercise is not.
+    assert mt.NettingSet(name="x", products=[object()], threshold=1.0).threshold == 1.0
+    assert mt.NettingSet(name="x", products=[object()], margin_period_of_risk=0.1).is_collateralized()
+    model, netting_sets = slice_book(mt)
+    netting_sets[0].products[0].regression_timeline = (0.05,)
     with pytest.raises(NotImplementedError):
-        mt.NettingSet(name="x", products=[object()], threshold=1.0)
-    with pytest.raises(NotImplementedError):
-        mt.NettingSet(name="x", products=[object()], margin_period_of_risk=0.1)
+        mt.SimulationController(netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), 64, 64,
+                                NUM_STEPS, mt.SimulationScheme.QE, device="cpu")
 
 
 def test_resolve_device_refuses_missing_cuda(monkeypatch):
+    # device=None means the card: without one it raises, as "cuda" does;
+    # only an explicit "cpu" runs on the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert mt.resolve_device(None) == torch.device("cpu")
-    with pytest.raises(RuntimeError):
-        mt.resolve_device("cuda")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError):
+            mt.resolve_device(device)
+    assert mt.resolve_device("cpu") == torch.device("cpu")
     model, netting_sets = slice_book(mt)
-    with pytest.raises(RuntimeError):
-        mt.SimulationController(netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), 64, 0,
-                                NUM_STEPS, mt.SimulationScheme.QE, device="cuda")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError):
+            mt.SimulationController(netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), 64, 0,
+                                    NUM_STEPS, mt.SimulationScheme.QE, device=device)
 
 
 def test_european_closed_forms_match_jax():
