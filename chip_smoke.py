@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's two main paths through ``SimulationController`` at full
-size, forward and differentiated, and checks every kernel on them against
-its plain PyTorch version:
+Drives the port's main paths through ``SimulationController`` at full size,
+forward and differentiated, and checks every kernel on them against its
+plain PyTorch version:
 
   * the Heston-QE European book (ten netting sets, one ATM call each,
     maturities 0.1 .. 1.0) at 2^20 paths x 10 points x 4 substeps, on the
@@ -12,24 +12,42 @@ its plain PyTorch version:
     of 5 Vasicek swaps and 5 Black-Scholes options, a CIR++ counterparty,
     MPoR 10/252, CVA + EPE + PFE(0.95) on ``linspace(0, 7, 29)``) at 1e6
     main and 1e6 pre-simulation paths, on the hybrid path kernel K2
-    (``hybrid_paths``).
+    (``hybrid_paths``, Euler blocks bs, vasicek, cirpp);
+  * the BS-multi European book of ``benchmarks/pv_european_book.py``
+    (10,000 options over the four assets of a BlackScholesMulti, 2^20
+    paths, ANALYTICAL, PV) on K2's exact bs_multi block, forward at full
+    size and differentiated at 1,000 options;
+  * the K2 routes of the other models: the 100-basket family of
+    ``benchmarks/pv_large_book.py`` on the same model, a Hull-White bond, a
+    Schwartz-2F call, standalone Black-Scholes, Vasicek and CIR++
+    (stochastic and deterministic) books, and a mixed ModelConfig of
+    BS-multi, Vasicek, Hull-White and deterministic CIR++.
 
 Phases:
 
   1. take the card, print its name and power limit (nvidia-smi);
   2. build both kernels from the sources in this checkout (concurrent nvcc,
-     sm_90a) and print their registers and spills;
+     sm_90a), print their registers and spills, and fail on a stack frame
+     or a spill in K2;
   3. compare each kernel with its plain version on the card at its main
-     path's shapes and time both (CUDA events, warm median of 5);
-  4. Heston book: counts to 0, forward and differentiated runs, counts
+     path's shapes and time both calls (CUDA events, warm median of 5): K1,
+     K2 on the north-star shapes, and the K2 ladder of every (block, scheme);
+  4. BS-multi European book: counts to 0, forward (one K2 launch per run)
+     and differentiated runs, counts read; PV against the sum of the
+     marginals' closed forms, deltas and vegas against theirs, the
+     jacobian against the engine route's on the same stream;
+  5. Heston book: counts to 0, forward and differentiated runs, counts
      read; PVs against the characteristic-function price, the kernel-route
      jacobian against the engine route's on the same Philox stream, the 1y
      delta against a central difference of the closed form;
-  5. north-star book: counts to 0, forward and differentiated runs, counts
+  6. north-star book: counts to 0, forward and differentiated runs, counts
      read (K2: one launch per phase, two per run); CVA against the JAX
      package's 16M-path value, EPE and PFE printed, the kernel-route values
      and CVA/EPE jacobian against the engine route's on the same stream;
-  6. print the card line, the kernels' JSON line and, last, the JSON result
+  7. the other K2 routes, each with its counts from 0 and its own oracle;
+  8. profile the BS-multi book (after all the walls: a profiler run
+     slows the launches that follow it);
+  9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
 Any failure raises and the script exits non-zero.  Without CUDA it exits
@@ -41,6 +59,7 @@ non-zero and prints no result.  Run from the repository root:
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -49,16 +68,31 @@ import numpy as np
 import torch
 
 import montecarlo_risk_engine_tpu_torch as mt
+from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
 )
 from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import (
+    CIRPP,
+    CIRPP_DET,
+    GBM_EULER,
+    GBM_EXACT,
+    HW_EULER,
+    HW_EXACT,
+    S2F_X_EULER,
+    S2F_X_EXACT,
+    S2F_Y_EULER,
+    S2F_Y_EXACT,
+    VAS_EULER,
+    VAS_EXACT,
     hybrid_paths,
     hybrid_paths_reference,
+    kernel_slots,
 )
 from montecarlo_risk_engine_tpu_torch.ops.paths_ad import dense_timeline
+from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType
 
 NUM_PATHS = 1 << 20
 NUM_STEPS = 4
@@ -75,6 +109,11 @@ CP = "counterparty"
 # JAX package, 16M paths (NOTES_R5.md:132-134, benchmarks/north_star_16m_mesh.py).
 CVA_REF, CVA_REF_SE = 0.2872266, 1.8e-5
 
+# BS-multi European book (benchmarks/pv_european_book.py:37-64).
+EURO_OPTIONS = 10_000
+EURO_DIFF_OPTIONS = 1_000  # the reverse pass keeps ~2 [2^20] f64 tensors per product
+ASSETS = tuple(f"asset_{i}" for i in range(4))
+
 # Device peaks for the bounds (NVIDIA H100 SXM data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -84,11 +123,14 @@ FP32_OPS_PER_S = 67e12
 #   K1 (csrc/heston_qe.cu): Philox4x32-10 98 (10 rounds of 2 mul.hi, 2 mul.lo,
 #   4 xor; 9 key bumps of 2 adds), 3 uniforms x 5, one Box-Muller pair 8,
 #   the QE update 52 -> 173.
-#   K2 (csrc/hybrid_paths.cu), per path-substep of the north-star blocks:
-#   Philox 98, 4 uniforms x 5, Box-Muller 8 + 6 (cosine half), the 3x3
-#   triangular combine 9, vasicek 9, bs 7, cirpp 13 -> 170.
+#   K2 (csrc/hybrid_paths.cu): k2_ops() below, from the same rules.
 K1_OPS_PER_SUBSTEP = 173
-K2_OPS_PER_SUBSTEP = 170
+PHILOX_OPS, UNIFORM_OPS, BM_PAIR_OPS, BM_COS_OPS = 98, 5, 8, 6
+# K2 slot updates per substep (the switch in csrc/hybrid_paths.cu); an
+# exact GBM slot adds one expf per emitted point.
+K2_ROLE_OPS = {GBM_EXACT: 8, GBM_EULER: 7, VAS_EXACT: 7, VAS_EULER: 9, CIRPP: 14,
+               CIRPP_DET: 2, HW_EXACT: 7, HW_EULER: 10, S2F_X_EXACT: 3, S2F_X_EULER: 6,
+               S2F_Y_EXACT: 9, S2F_Y_EULER: 10}
 
 
 def check(cond: bool, what: str) -> None:
@@ -210,29 +252,82 @@ def compare_kernel(params, timeline, steps, smoothing, emit, min_close):
     return err
 
 
-def compare_hybrid(blocks, chol, params, dense, phase):
-    """K2 vs its plain version at the north-star shapes; returns the max abs
-    state error."""
-    out = hybrid_paths(blocks, chol, params, dense, NS_PATHS, 1, seed=SEED, phase=phase)
-    ref = hybrid_paths_reference(blocks, chol, params, dense, NS_PATHS, 1, seed=SEED, phase=phase)
+def compare_hybrid(label, blocks, chol, params, timeline, steps, phase, num_paths):
+    """K2 vs its plain version on the card; returns (max abs state error,
+    bitwise)."""
+    out = hybrid_paths(blocks, chol, params, timeline, num_paths, steps, seed=SEED, phase=phase)
+    ref = hybrid_paths_reference(blocks, chol, params, timeline, num_paths, steps, seed=SEED,
+                                 phase=phase)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), f"K2 phase {phase}: non-finite states")
+    check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite states")
     bitwise = torch.equal(out, ref)
     close = torch.isclose(out, ref, rtol=1e-5, atol=1e-6).all(dim=-1).all(dim=0)
     frac = float(close.double().mean())
     err = float((out - ref).abs().max())
     mean_k, mean_r = out[-1].double().mean(dim=0), ref[-1].double().mean(dim=0)
     mean_rel = float(((mean_k - mean_r).abs() / mean_r.abs().clamp(min=1e-30)).max())
-    print(f"  phase {phase}: states bitwise {bitwise} (so every draw is the same word), paths "
-          f"within rtol 1e-5/atol 1e-6 {frac:.6f}, max abs err {err:.3e}, rel err of terminal "
-          f"means {mean_rel:.3e}")
-    check(frac >= 0.9999, f"K2 phase {phase}: only {frac:.6f} of paths agree")
-    check(mean_rel <= 1e-6, f"K2 phase {phase}: terminal means differ by {mean_rel:.3e}")
-    return err
+    print(f"  {label}: states bitwise {bitwise}, paths within rtol 1e-5/atol 1e-6 {frac:.6f}, "
+          f"max abs err {err:.3e}, rel err of terminal means {mean_rel:.3e}")
+    check(frac >= 0.9999, f"K2 {label}: only {frac:.6f} of paths agree")
+    check(mean_rel <= 1e-6, f"K2 {label}: terminal means differ by {mean_rel:.3e}")
+    return err, bitwise
+
+
+def k2_ops(blocks, chol, timeline, steps: int, num_paths: int) -> float:
+    """Operations of one K2 run counted from the source: per path-substep
+    the Philox calls, the uniforms and Box-Muller pairs of the sim_dim
+    normals, the non-zero Cholesky products and their sums, the slot
+    updates; per emitted point one expf per exact GBM slot."""
+    slots, _, _ = kernel_slots(blocks)
+    n = len(slots)
+    nnz = int(np.count_nonzero(np.tril(np.asarray(chol))))
+    per_substep = (PHILOX_OPS * -(-n // 4) + UNIFORM_OPS * 2 * -(-n // 2)
+                   + BM_PAIR_OPS * (n // 2) + BM_COS_OPS * (n % 2) + nnz + (nnz - n)
+                   + sum(K2_ROLE_OPS[sl.role] for sl in slots))
+    per_point = sum(sl.role == GBM_EXACT for sl in slots)
+    return num_paths * (live_substeps(timeline, steps) * per_substep + len(timeline) * per_point)
+
+
+def k2_rung(label, blocks, chol, params, timeline, steps, num_paths=NUM_PATHS, phase=PHASE):
+    """One rung of the K2 ladder: kernel vs plain version, both timed, and
+    the bound; returns the row of the kernels' JSON line (launches filled
+    in by the main path that runs it)."""
+    err, bitwise = compare_hybrid(label, blocks, chol, params, timeline, steps, phase, num_paths)
+    run = lambda: hybrid_paths(blocks, chol, params, timeline, num_paths, steps, seed=SEED,
+                               phase=phase)
+    run_plain = lambda: hybrid_paths_reference(blocks, chol, params, timeline, num_paths, steps,
+                                               seed=SEED, phase=phase)
+    plain_ms = median_ms(run_plain)
+    ms = median_ms(run)
+    state_dim = kernel_slots(blocks)[1]
+    substeps = num_paths * live_substeps(timeline, steps)
+    t_bound, by = bound(len(timeline) * num_paths * state_dim * 4,
+                        k2_ops(blocks, chol, timeline, steps, num_paths))
+    print(f"    [{len(timeline)} points x {steps} substeps, D={state_dim}] call {ms:.4f} ms "
+          f"({substeps / ms * 1e3:.3e} path-steps/s), plain {plain_ms:.3f} ms, bound "
+          f"{t_bound:.4f} ms by {by} ({t_bound / ms:.1%} of it reached by the call)")
+    return {"name": f"hybrid_paths[{label}]", "route": "cuda",
+            "source": "montecarlo_risk_engine_tpu_torch/csrc/hybrid_paths.cu",
+            "replaces": "montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+
+
+def model_rung(label, c, device, phase=PHASE):
+    """The ladder rung of a controller's K2 run at its own shapes: its
+    model's blocks, scheme, timeline and substeps, float32 parameters."""
+    m = c.model
+    if isinstance(m, mt.ModelConfig):
+        blocks, corr = m.kernel_blocks(), m.static_joint_correlation()
+    else:
+        blocks, corr = [m.kernel_block(c.simulation_scheme)], m.kernel_correlation()
+    params = m.initial_params(device=device, dtype=torch.float32)
+    return k2_rung(label, blocks, np.linalg.cholesky(corr), params, c.simulation_timeline,
+                   c.num_steps, c.num_paths_mainsim, phase)
 
 
 def heston_main_path(device):
-    """Phase 4: the Heston book; returns K1's launches in it."""
+    """Phase 5: the Heston book; returns K1's launches in it."""
     heston_qe_paths.launches = 0
     heston_qe_paths.emit_launches = 0
 
@@ -320,7 +415,10 @@ def heston_main_path(device):
 
 def profile_run(label: str, fn) -> None:
     """One run under torch.profiler: wall, device busy time (the sum of the
-    CUDA kernels' durations) and the five kernels that take the most."""
+    CUDA kernels' durations) and the five kernels that take the most.  A
+    profiler run leaves the later launches of the process slower, so the
+    BS-multi book is profiled after every wall; the Heston and north-star
+    books keep their earlier order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,7 +446,7 @@ def ns_jacobian(results, metric):
 
 
 def north_star_main_path():
-    """Phase 5: the north-star book; returns K2's launches in it."""
+    """Phase 6: the north-star book; returns K2's launches in it."""
     hybrid_paths.launches = 0
     fwd = north_star(NS_PATHS, False)
     check(fwd._kernel_active, "the north-star book is not on the kernel path")
@@ -446,6 +544,399 @@ def north_star_main_path():
     return launches
 
 
+# -- the BS-multi books and the other K2 routes --------------------------------------
+
+CALL, PUT = mt.OptionType.CALL, mt.OptionType.PUT
+PV = lambda: mt.RiskMetrics([mt.PVMetric()])
+HW_TIMES, HW_DFS = [0.0, 1.0, 3.0, 5.0], [1.0, 0.97, 0.90, 0.84]
+CIR_HAZARDS = {1.0: 0.02, 2.0: 0.022, 5.0: 0.028}
+
+
+def bs_multi_model():
+    """The 4-asset model of benchmarks/pv_european_book.py:38-46."""
+    corr = np.full((4, 4), 0.35)
+    np.fill_diagonal(corr, 1.0)
+    return mt.BlackScholesMulti(0.0, rate=0.03, asset_ids=list(ASSETS),
+                                spots=[95.0 + 7.5 * i for i in range(4)],
+                                volatilities=[0.18 + 0.03 * i for i in range(4)],
+                                correlation_matrix=corr)
+
+
+def euro_options(num_options: int):
+    """The European book of benchmarks/pv_european_book.py:47-55."""
+    return [mt.EuropeanOption(mt.Equity(ASSETS[i % 4]), 0.5 + 0.25 * (i % 10),
+                              80.0 + (i % 9) * 5.0, CALL if i % 2 == 0 else PUT,
+                              asset_id=ASSETS[i % 4]) for i in range(num_options)]
+
+
+def book(model, netting_sets, scheme, num_steps, differentiate=False, use_kernel="auto"):
+    return mt.SimulationController(netting_sets, model, PV(), NUM_PATHS, 0, num_steps, scheme,
+                                   differentiate=differentiate, root_seed=SEED,
+                                   use_kernel=use_kernel, device="cuda")
+
+
+def euro_book(num_options: int, differentiate=False, use_kernel="auto"):
+    products = euro_options(num_options)
+    return book(bs_multi_model(), [mt.NettingSet(name="european_book", products=products)],
+                mt.SimulationScheme.ANALYTICAL, 1, differentiate, use_kernel), products
+
+
+def closed_form_sum(model, products):
+    """The sum of the products' closed forms and its gradient by the
+    parameters (float64 on the CPU)."""
+    params = tuple(p.requires_grad_(True) for p in model.initial_params(device="cpu"))
+    total = sum(p.compute_pv_analytically(model, params) for p in products)
+    grads = torch.autograd.grad(total, params)
+    return float(total.detach()), dict(zip(model.get_model_param_names(), (float(g) for g in grads)))
+
+
+def pv_of(results, ns="european_book"):
+    return (float(results.get_results(ns, "pv", evaluation_idx=0)),
+            float(results.get_mc_error(ns, "pv", evaluation_idx=0)))
+
+
+def same_values(kernel, engine, label, rtol=1e-4, atol=1e-6):
+    """Kernel route vs engine route, every netting set's PV, one stream."""
+    names = engine.get_netting_set_names()
+    k = np.array([pv_of(kernel, n)[0] for n in names])
+    e = np.array([pv_of(engine, n)[0] for n in names])
+    rel = float(np.max(np.abs(k - e) / np.maximum(np.abs(e), atol)))
+    print(f"  {label}: kernel vs engine route values max rel err {rel:.3e} ({len(names)} netting sets)")
+    np.testing.assert_allclose(k, e, rtol=rtol, atol=atol, err_msg=label)
+
+
+def euro_main_path():
+    """Phase 4: the BS-multi European book; returns K2's launches in it and
+    its forward and differentiated runs, profiled at the end."""
+    hybrid_paths.launches = 0
+    fwd, products = euro_book(EURO_OPTIONS)
+    check(fwd._kernel_active, "the European book is not on the kernel path")
+    results = fwd.run_simulation()
+    check(hybrid_paths.launches == 1, f"forward run made {hybrid_paths.launches} K2 launches, not 1")
+
+    def run_fwd():
+        nonlocal results
+        results = fwd.run_simulation()
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = [wall_seconds(run_fwd) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pv, se = pv_of(results)
+    cf, _ = closed_form_sum(fwd.model, products)
+    print(f"[bs-multi european forward] {EURO_OPTIONS} options x {NUM_PATHS} paths, "
+          f"{len(fwd.simulation_timeline)}-point timeline: warm walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s ({EURO_OPTIONS / min(walls):.0f} options/s), "
+          f"peak memory {peak:.2f} GiB")
+    print(f"  pv {pv:.4f} se {se:.4f} vs closed-form sum {cf:.4f}: {abs(pv - cf) / se:.2f} SE")
+    check(np.isfinite(pv) and se > 0 and abs(pv - cf) < 4 * se, f"pv {pv} vs closed form {cf}")
+    torch.cuda.empty_cache()
+
+    diff, products = euro_book(EURO_DIFF_OPTIONS, differentiate=True)
+    before = hybrid_paths.launches
+    torch.cuda.reset_peak_memory_stats()
+    diff_results = diff.run_simulation()
+    check(hybrid_paths.launches == before + 1, "differentiated run did not launch K2 once")
+
+    def run_diff():
+        nonlocal diff_results
+        diff_results = diff.run_simulation()
+
+    diff_s = wall_seconds(run_diff)
+    diff_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[bs-multi european differentiated] {EURO_DIFF_OPTIONS} options x {NUM_PATHS} paths: "
+          f"warm wall {diff_s:.4f} s ({diff._grad_mode_resolved} mode), peak memory "
+          f"{diff_peak:.2f} GiB")
+    launches = hybrid_paths.launches  # this main path only
+    print(f"  K2 launches: {launches} (1 per run, forward and differentiated)")
+    cf, cf_grads = closed_form_sum(diff.model, products)
+    grads = diff_results.get_derivatives("european_book", "pv", evaluation_idx=0)
+    for name in diff.model.get_model_param_names()[:8]:
+        mc, ref = float(grads[name]), cf_grads[name]
+        gap = abs(mc - ref) / abs(ref)
+        print(f"  d pv / d {name}: pathwise {mc:.4f} vs closed forms {ref:.4f} (gap {gap:.3%})")
+        check(gap < 0.02, f"d pv / d {name} is {gap:.3%} from the closed forms")
+    names = diff.model.get_model_param_names()
+    jac_k = np.array([float(grads[n]) for n in names])
+    torch.cuda.empty_cache()
+
+    engine, _ = euro_book(EURO_DIFF_OPTIONS, differentiate=True, use_kernel=False)
+    engine_results = None
+
+    def run_engine():
+        nonlocal engine_results
+        engine_results = engine.run_simulation()
+
+    engine_s = wall_seconds(run_engine)
+    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    jac_e = np.array([float(engine_results.get_derivatives("european_book", "pv",
+                                                             evaluation_idx=0)[n]) for n in names])
+    jrel = float(np.max(np.abs(jac_k - jac_e) / np.maximum(np.abs(jac_e), 1e-6)))
+    print(f"[bs-multi european differentiated, engine route] wall {engine_s:.4f} s; kernel vs "
+          f"engine jacobian max rel err {jrel:.3e}")
+    same_values(diff_results, engine_results, "bs-multi european differentiated")
+    np.testing.assert_allclose(jac_k, jac_e, rtol=1e-3, atol=1e-6)
+    del engine
+    torch.cuda.empty_cache()
+    return launches, {"bs-multi european forward": run_fwd,
+                      "bs-multi european differentiated": run_diff}
+
+
+def baskets():
+    """The 100-basket family of benchmarks/pv_large_book.py:90-99, then four
+    equal-weight geometric baskets of all four assets (the closed form's
+    case)."""
+    weights = [[0.5, 0.3, 0.2, 0.0], [0.25] * 4, [0.4, 0.35, 0.15, 0.10]]
+    family = []
+    for i in range(100):
+        n_active = 2 + (i % 3)
+        w = weights[i % 3][:n_active]
+        family.append(mt.BasketOption(
+            [0.75, 1.25, 2.0, 2.5][i % 4], list(ASSETS[:n_active]), [x / sum(w) for x in w],
+            95.0 + 5.0 * (i % 5), CALL if i % 2 == 0 else PUT,
+            mt.BasketOptionType.ARITHMETIC if i % 3 != 0 else mt.BasketOptionType.GEOMETRIC))
+    return family + [mt.BasketOption(t, list(ASSETS), [0.25] * 4, k, kind,
+                                     mt.BasketOptionType.GEOMETRIC)
+                     for t, k, kind in ((0.75, 100.0, CALL), (1.25, 105.0, PUT),
+                                        (2.0, 95.0, CALL), (2.5, 110.0, PUT))]
+
+
+def basket_phase():
+    """The basket family on the European book's model, each basket its own
+    netting set: kernel vs engine route, the geometric ones against the
+    closed form."""
+    make = lambda use_kernel: book(bs_multi_model(),
+                                   [mt.NettingSet(name=f"basket_{i}", products=[p])
+                                    for i, p in enumerate(baskets())],
+                                   mt.SimulationScheme.ANALYTICAL, 1, use_kernel=use_kernel)
+    hybrid_paths.launches = 0
+    kernel = make("auto")
+    check(kernel._kernel_active, "the basket book is not on the kernel path")
+    results = kernel.run_simulation()
+    launches = hybrid_paths.launches
+    engine_results = make(False).run_simulation()
+    check(hybrid_paths.launches == launches == 1, "the basket book did not launch K2 once")
+    print(f"[basket family] {len(kernel.products)} baskets, {NUM_PATHS} paths, K2 launches "
+          f"{launches}")
+    same_values(results, engine_results, "baskets")
+    params = kernel.model.initial_params(device="cpu")
+    for i, p in enumerate(kernel.products[100:], start=100):
+        pv, se = pv_of(results, f"basket_{i}")
+        cf = float(p.compute_pv_analytically(kernel.model, params))
+        print(f"  geometric T={p.maturity} K={p.strike}: pv {pv:.5f} se {se:.5f} closed form "
+              f"{cf:.5f} ({abs(pv - cf) / se:.2f} SE)")
+        check(abs(pv - cf) < 4 * se, f"geometric basket {i}: {pv} vs {cf}")
+    return launches
+
+
+def hw_book(scheme, differentiate=False, use_kernel="auto", vol=0.01, mr=0.4):
+    """The Hull-White bond of tests/test_pallas_controller_tpu.py:454-466."""
+    model = mt.HullWhiteModel(0.0, HW_TIMES, HW_DFS, volatility=vol, mean_reversion=mr,
+                              asset_id="irs")
+    bond = mt.Bond(startdate=0.0, maturity=3.0, notional=1.0, tenor=3.0, pays_notional=True,
+                   fixed_rate=0.0, asset_id="irs")
+    return book(model, [mt.NettingSet(name="bond", products=[bond])], scheme, 16,
+                differentiate, use_kernel)
+
+
+def hw_phase(scheme):
+    """Hull-White bond: kernel vs engine route, the curve's 0.90, and under
+    ANALYTICAL the differentiated vol / mean-reversion derivatives against
+    a common-random-number central difference of the same kernel stream
+    (tests/test_pallas_controller_tpu.py:468-505)."""
+    hybrid_paths.launches = 0
+    kernel = hw_book(scheme)
+    check(kernel._kernel_active, "the Hull-White bond is not on the kernel path")
+    pv_k, _ = pv_of(kernel.run_simulation(), "bond")
+    pv_e, se_e = pv_of(hw_book(scheme, use_kernel=False).run_simulation(), "bond")
+    print(f"[hull-white bond, {scheme.name}] pv kernel {pv_k:.6f} engine {pv_e:.6f} (se {se_e:.2e})")
+    check(abs(pv_k - pv_e) < 4 * se_e + 1e-4, "kernel and engine bond PVs differ")
+    check(abs(pv_e - 0.90) < 5e-3, f"bond pv {pv_e} is not the curve's 0.90")
+    if scheme == mt.SimulationScheme.ANALYTICAL:
+        diff = hw_book(scheme, differentiate=True)
+        grads = diff.run_simulation().get_derivatives("bond", "pv", evaluation_idx=0)
+        base = dict(zip(diff.model.get_model_param_names(), diff.model._initial_values()))
+        for name, kw in (("volatility", "vol"), ("mean_reversion", "mr")):
+            h = 1e-3 * max(1.0, abs(base[name]))
+            bumped = lambda s: pv_of(hw_book(scheme, **{kw: base[name] + s * h}).run_simulation(),
+                                     "bond")[0]
+            fd = (bumped(1) - bumped(-1)) / (2 * h)
+            aad = float(grads[name])
+            print(f"  d pv / d {name}: pathwise {aad:.6f} vs CRN central difference {fd:.6f}")
+            check(abs(aad - fd) < 2e-3 * max(1.0, abs(fd)) + 2e-4, f"d pv / d {name}")
+    check(hybrid_paths.launches > 0, "the Hull-White phase launched no K2")
+    return hybrid_paths.launches
+
+
+def s2f_book(scheme, differentiate, use_kernel="auto"):
+    """The Schwartz-2F call of tests/test_pallas_controller_tpu.py:517-533."""
+    model = mt.SchwartzTwoFactorModel(0.0, [0.0, 1.0, 3.0], [50.0, 52.0, 55.0], rate=0.03,
+                                      short_term_mean_reversion=1.2, short_term_vol=0.3,
+                                      long_term_drift=0.01, long_term_vol=0.15, rho=0.35,
+                                      asset_id="gas")
+    option = mt.EuropeanOption(mt.Equity("gas"), 2.0, 52.0, CALL, asset_id="gas")
+    return book(model, [mt.NettingSet(name="book", products=[option])], scheme, 8,
+                differentiate, use_kernel)
+
+
+def s2f_phase(scheme):
+    """Schwartz-2F call, differentiated: kernel vs engine PV within 4
+    combined SE + 1e-4, the vol and rho derivatives within 10 % + 1e-3."""
+    hybrid_paths.launches = 0
+    kernel = s2f_book(scheme, True)
+    check(kernel._kernel_active, "the Schwartz-2F call is not on the kernel path")
+    r_k = kernel.run_simulation()
+    launches = hybrid_paths.launches
+    r_e = s2f_book(scheme, True, use_kernel=False).run_simulation()
+    check(hybrid_paths.launches == launches > 0, "the Schwartz-2F phase did not launch K2")
+    (pv_k, se_k), (pv_e, se_e) = pv_of(r_k, "book"), pv_of(r_e, "book")
+    se = math.hypot(se_k, se_e)
+    print(f"[schwartz-2f call, {scheme.name}] pv kernel {pv_k:.6f} engine {pv_e:.6f} (se {se:.2e})")
+    check(abs(pv_k - pv_e) < 4 * se + 1e-4, "kernel and engine call PVs differ")
+    g_k = r_k.get_derivatives("book", "pv", evaluation_idx=0)
+    g_e = r_e.get_derivatives("book", "pv", evaluation_idx=0)
+    for name in ("short_term_vol", "long_term_vol", "rho"):
+        a, b = float(g_k[name]), float(g_e[name])
+        print(f"  d pv / d {name}: kernel {a:.6f} engine {b:.6f}")
+        check(np.isfinite(a) and abs(a - b) < 0.1 * max(abs(a), abs(b)) + 1e-3, f"d pv / d {name}")
+    return launches
+
+
+class SurvivalClaim(mt.Product):
+    """Pays 1 at maturity if the reference entity has not defaulted: its
+    value on a path is the survival exp(-int lambda) of a CIR++ model, whose
+    mean reprices the market survival curve."""
+
+    def __init__(self, maturity: float, asset_id: str):
+        super().__init__(asset_ids=[asset_id])
+        self.product_timeline = self.modeling_timeline = (float(maturity),)
+        self.spot_requests = {(0, asset_id): AtomicRequest(AtomicRequestType.SURVIVAL_PROBABILITY)}
+
+    def compute_normalized_cashflows(self, time_idx, model, params, resolved_requests,
+                                     regression_function=None, state_matrix=None):
+        survival = resolved_requests[0][self.spot_requests[(0, self.asset_ids[0])].handle]
+        return state_matrix, survival[:, None]
+
+
+def route_specs():
+    """The other K2 routes: {rung label: (title, model maker, products maker,
+    scheme, substeps, oracle, tolerance)}.  BS, Vasicek, CIR++ and
+    deterministic CIR++ alone, each with an oracle of its book's PV; two
+    ModelConfig books under EULER (the European book's first 100 options on
+    BS-multi alone, a PV book on the mixed model), held to the engine only."""
+    A, E = mt.SimulationScheme.ANALYTICAL, mt.SimulationScheme.EULER
+    bs = lambda: mt.BlackScholesModel(0.0, spot=100.0, rate=0.03, sigma=0.22, asset_id="eq")
+    bs_options = lambda: [mt.EuropeanOption(mt.Equity("eq"), 0.5 + 0.25 * i, 80.0 + 5.0 * i,
+                                            CALL if i % 2 == 0 else PUT, asset_id="eq")
+                          for i in range(10)]
+    vas = lambda: mt.VasicekModel(0.0, rate=0.03, mean=0.045, mean_reversion_speed=0.3,
+                                  volatility=0.012, asset_id="irs")
+    zero_bonds = lambda: [mt.Bond(startdate=0.0, maturity=0.5 + 0.25 * i, notional=1.0,
+                                  tenor=0.5 + 0.25 * i, pays_notional=True, fixed_rate=0.0,
+                                  asset_id="irs") for i in range(10)]
+    cir = lambda det: (lambda: mt.CIRPPModel(0.0, "cp", CIR_HAZARDS, kappa=0.5, theta=0.03,
+                                             volatility=0.05, y0=0.03, deterministic=det))
+    claim = lambda: [SurvivalClaim(3.0, "cp")]
+    market = lambda m: 1.0 - float(probability_of_default(
+        torch.tensor(m.hazard_rates), torch.tensor(m.tenors), torch.tensor(3.0)))
+    params = lambda m: m.initial_params(device="cpu")
+    mixed_products = lambda: [
+        mt.EuropeanOption(mt.Equity("asset_0"), 1.0, 100.0, CALL, asset_id="asset_0"),
+        mt.EuropeanOption(mt.Equity("asset_3"), 2.0, 115.0, PUT, asset_id="asset_3"),
+        mt.InterestRateSwap(0.0, 3.0, notional=1.0, fixed_rate=0.04, tenor_fixed=0.5,
+                            tenor_float=0.5, irs_type=mt.IRSType.PAYER, asset_id="irs"),
+        mt.Bond(startdate=0.0, maturity=3.0, notional=1.0, tenor=3.0, pays_notional=True,
+                fixed_rate=0.0, asset_id="hw")]
+    return {
+        "bs exact": ("black-scholes alone, ANALYTICAL", bs, bs_options, A, 1,
+                     lambda m: sum(float(o.compute_pv_analytically(m, params(m)))
+                                   for o in bs_options()), lambda se: 4 * se),
+        # the left-Riemann numeraire bias (quirk Q3) of ten bonds at 4 substeps
+        "vasicek exact": ("vasicek alone, ANALYTICAL", vas, zero_bonds, A, 4,
+                          lambda m: sum(float(m.bond_price(params(m), 0.0, b.maturity,
+                                                           params(m)[0])) for b in zero_bonds()),
+                          lambda se: 1e-2),
+        "cirpp euler": ("cir++ alone, EULER", cir(False), claim, E, 32, market,
+                        lambda se: 4 * se + 2e-3),
+        "cirpp_det euler": ("deterministic cir++ alone, EULER", cir(True), claim, E, 16, market,
+                            lambda se: 2e-3),
+        "bs_multi euler": ("model config of bs-multi, EULER",
+                           lambda: mt.ModelConfig([bs_multi_model()]),
+                           lambda: euro_options(100), E, 4, None, None),
+        "bs_multi, vasicek, hw, cirpp_det euler": (
+            "model config of bs-multi, vasicek, hull-white, deterministic cir++, EULER",
+            mixed_model, mixed_products, E, 4, None, None),
+    }
+
+
+def route_book(spec, use_kernel="auto"):
+    _, make_model, products, scheme, num_steps = spec[:5]
+    return book(make_model(), [mt.NettingSet(name="book", products=products())], scheme,
+                num_steps, use_kernel=use_kernel)
+
+
+def route_phase(spec):
+    """One K2 route: kernel vs engine values on one stream, and the book's
+    PV against its oracle where it has one; returns K2's launches."""
+    title, _, _, _, _, oracle, tol = spec
+    hybrid_paths.launches = 0
+    kernel = route_book(spec)
+    check(kernel._kernel_active, f"{title}: not on the kernel path")
+    r_k = kernel.run_simulation()
+    launches = hybrid_paths.launches
+    r_e = route_book(spec, use_kernel=False).run_simulation()
+    check(hybrid_paths.launches == launches == 1, f"{title}: K2 launches {launches}, not 1")
+    pv, se = pv_of(r_k, "book")
+    if oracle is None:
+        print(f"[{title}] pv {pv:.6f} se {se:.2e}")
+    else:
+        ref = oracle(kernel.model)
+        print(f"[{title}] pv {pv:.6f} se {se:.2e} vs {ref:.6f} ({abs(pv - ref):.2e} apart)")
+        check(abs(pv - ref) < tol(se), f"{title}: pv {pv} vs {ref}")
+    same_values(r_k, r_e, title)
+    return launches
+
+
+def mixed_model():
+    """ModelConfig of BS-multi (4), Vasicek, Hull-White and deterministic
+    CIR++: seven noise factors, every ModelConfig block kind but Black-Scholes
+    and stochastic CIR++ (which the north star has)."""
+    col = lambda v: np.full((4, 1), v)
+    return mt.ModelConfig(
+        [bs_multi_model(),
+         mt.VasicekModel(0.0, rate=0.03, mean=0.045, mean_reversion_speed=0.3, volatility=0.012,
+                         asset_id="irs"),
+         mt.HullWhiteModel(0.0, HW_TIMES, HW_DFS, volatility=0.01, mean_reversion=0.4,
+                           asset_id="hw"),
+         mt.CIRPPModel(0.0, CP, HAZARDS, kappa=0.1, theta=0.01, volatility=0.02, y0=0.0001,
+                       deterministic=True)],
+        inter_asset_correlation_matrix=[col(0.1), col(0.05), col(0.2), np.array([[0.3]]),
+                                        np.array([[0.1]]), np.array([[0.15]])])
+
+
+def k2_ladder(device):
+    """Phase 3c: every (block, scheme) of K2 against its plain version at
+    the shapes of the book that runs it (the mixed ModelConfig at the
+    north star's 57 points); returns the rows by label."""
+    A, E, M = (mt.SimulationScheme.ANALYTICAL, mt.SimulationScheme.EULER,
+               mt.SimulationScheme.MILSTEIN)
+    print(f"[kernel] hybrid_paths ladder at {NUM_PATHS} paths")
+    rows = {"bs_multi exact": model_rung("bs_multi exact", euro_book(EURO_OPTIONS)[0], device)}
+    for label, spec in route_specs().items():
+        if label != "bs_multi, vasicek, hw, cirpp_det euler":
+            rows[label] = model_rung(label, route_book(spec), device)
+    rows["hw exact"] = model_rung("hw exact", hw_book(A), device)
+    rows["hw euler"] = model_rung("hw euler", hw_book(M), device)
+    rows["s2f exact"] = model_rung("s2f exact", s2f_book(A, False), device)
+    rows["s2f euler"] = model_rung("s2f euler", s2f_book(E, False), device)
+    mixed = mixed_model()
+    ns_dense, _ = dense_timeline(0.0, north_star(NS_PATHS, False).simulation_timeline, 1)
+    rows["bs_multi, vasicek, hw, cirpp_det euler"] = k2_rung(
+        "bs_multi, vasicek, hw, cirpp_det euler", mixed.kernel_blocks(),
+        np.linalg.cholesky(mixed.static_joint_correlation()),
+        mixed.initial_params(device=device, dtype=torch.float32), ns_dense, 1)
+    return rows
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -460,14 +951,21 @@ def main():
     ).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     # 2. build both kernels concurrently
     for name, built in cuda_build.load_libraries(["heston_qe", "hybrid_paths"]).items():
         how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
         print(f"[build] {name}: {how} -> {built.path.name}")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"  {line.split(chr(39))[1]}")
+            if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"  {line.strip()}")
+                if name == "hybrid_paths" and "stack frame" in line:
+                    check(line.strip().startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                  "0 bytes spill loads"),
+                          f"K2 uses local memory: {line.strip()}")
 
     # 3a. K1 vs plain version at the Heston path's shapes
     params32 = mt.params_from_numpy(
@@ -500,58 +998,57 @@ def main():
     ns_params32 = ns_model.initial_params(device=device, dtype=torch.float32)
     print(f"[kernel] hybrid_paths at {NS_PATHS} paths x {len(ns_dense)} points "
           f"(dense timeline), blocks {[b.kind for b in blocks]}")
-    k2_errs = [compare_hybrid(blocks, chol, ns_params32, ns_dense, phase)
-               for phase in (mt.rng.PHASE_PRESIM, mt.rng.PHASE_MAINSIM)]
-    run_k2 = lambda: hybrid_paths(blocks, chol, ns_params32, ns_dense, NS_PATHS, 1, seed=SEED,
-                                  phase=PHASE)
-    run_k2_plain = lambda: hybrid_paths_reference(blocks, chol, ns_params32, ns_dense, NS_PATHS, 1,
-                                                  seed=SEED, phase=PHASE)
-    k2_plain_ms = median_ms(run_k2_plain)
-    k2_ms = median_ms(run_k2)
-    k2_substeps = NS_PATHS * live_substeps(ns_dense, 1)
-    k2_bound = bound(len(ns_dense) * NS_PATHS * ns_model.state_dim * 4,
-                     k2_substeps * K2_OPS_PER_SUBSTEP)
-    print(f"  kernel {k2_ms:.3f} ms ({k2_substeps / k2_ms * 1e3:.3e} path-steps/s), "
-          f"plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
-          f"({k2_bound[0] / k2_ms:.1%} of it reached)")
+    presim_err, _ = compare_hybrid("north star presim", blocks, chol, ns_params32, ns_dense, 1,
+                                   mt.rng.PHASE_PRESIM, NS_PATHS)
+    ns_row = k2_rung("vasicek, bs, cirpp euler", blocks, chol, ns_params32, ns_dense, 1,
+                     NS_PATHS)
+    ns_row["max_abs_err"] = max(ns_row["max_abs_err"], presim_err)
     del ns
 
-    # 4. + 5. the main paths: each path's counts from 0 just before it
+    # 3c. the K2 ladder: every (block, scheme) at its book's shapes
+    rows = k2_ladder(device)
+    print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
+
+    # 4. - 7. the main paths and routes: each one's counts from 0 just before it
+    rows["bs_multi exact"]["launches"], euro_runs = euro_main_path()
+    torch.cuda.empty_cache()
     k1_launches = heston_main_path(device)
     torch.cuda.empty_cache()
-    k2_launches = north_star_main_path()
-    check(k1_launches > 0 and k2_launches > 0, "a kernel of the main paths never launched")
+    ns_row["launches"] = north_star_main_path()
+    torch.cuda.empty_cache()
+    print(f"[time] main paths done after {time.perf_counter() - t_start:.1f} s")
+    basket_phase()
+    for label, spec in route_specs().items():
+        rows[label]["launches"] = route_phase(spec)
+    rows["hw exact"]["launches"] = hw_phase(mt.SimulationScheme.ANALYTICAL)
+    rows["hw euler"]["launches"] = hw_phase(mt.SimulationScheme.MILSTEIN)
+    rows["s2f exact"]["launches"] = s2f_phase(mt.SimulationScheme.ANALYTICAL)
+    rows["s2f euler"]["launches"] = s2f_phase(mt.SimulationScheme.EULER)
+    k2_rows = [ns_row, *rows.values()]
+    check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
+          "a kernel of the main paths never launched")
 
-    # 6. result lines
+    # 8. the BS-multi book's device busy share, after every wall it would slow
+    for label, run in euro_runs.items():
+        profile_run(label, run)
+    print(f"[time] all phases done after {time.perf_counter() - t_start:.1f} s")
+
+    # 8. result lines
     print(smi)
-    print(json.dumps({"kernels": [
-        {
-            "name": "heston_qe_paths",
-            "route": "cuda",
-            "source": "montecarlo_risk_engine_tpu_torch/csrc/heston_qe.cu",
-            "replaces": "montecarlo_risk_engine_tpu/ops/pallas_paths.py:148",
-            "launches": k1_launches,
-            "max_abs_err": max(k1_errs),
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bound[0],
-            "bound_by": k1_bound[1],
-            "library_ms": None,
-        },
-        {
-            "name": "hybrid_paths",
-            "route": "cuda",
-            "source": "montecarlo_risk_engine_tpu_torch/csrc/hybrid_paths.cu",
-            "replaces": "montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153",
-            "launches": k2_launches,
-            "max_abs_err": max(k2_errs),
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound[0],
-            "bound_by": k2_bound[1],
-            "library_ms": None,
-        },
-    ]}))
+    k1_row = {
+        "name": "heston_qe_paths",
+        "route": "cuda",
+        "source": "montecarlo_risk_engine_tpu_torch/csrc/heston_qe.cu",
+        "replaces": "montecarlo_risk_engine_tpu/ops/pallas_paths.py:148",
+        "launches": k1_launches,
+        "max_abs_err": max(k1_errs),
+        "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [k1_row] + k2_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,15 @@
 """montecarlo_risk_engine_tpu_torch — the PyTorch / CUDA port of the engine.
 
 A second package beside ``montecarlo_risk_engine_tpu`` (the JAX reference,
-which it never imports).  Ported so far: the Heston-QE European book and the
+which it never imports).  Ported so far: the Heston-QE European book, the
 north-star xVA book (a ModelConfig of Vasicek, Black-Scholes and CIR++
 models; swaps and options; LSM exposures, MPoR collateral, CVA, EPE, PFE)
-through ``SimulationController``, forward and differentiated, with the path
-kernels written in CUDA for Hopper (``ops/heston_qe.py`` +
-``csrc/heston_qe.cu``, ``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
+and the BS-multi European and basket books, with the Black-Scholes,
+BS-multi, Vasicek, CIR++ (stochastic and deterministic), Hull-White and
+Schwartz-2F models each on their own or in a ModelConfig, through
+``SimulationController``, forward and differentiated, with the path kernels
+written in CUDA for Hopper (``ops/heston_qe.py`` + ``csrc/heston_qe.cu``,
+``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
 """
 
 from montecarlo_risk_engine_tpu_torch.api.controller import SimulationController
@@ -26,11 +29,15 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import params_from_numpy
 from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
+from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.models.cirpp import CIRPPModel
 from montecarlo_risk_engine_tpu_torch.models.heston import HestonModel
+from montecarlo_risk_engine_tpu_torch.models.hull_white import HullWhiteModel
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
+from montecarlo_risk_engine_tpu_torch.models.schwartz_two_factor import SchwartzTwoFactorModel
 from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
 from montecarlo_risk_engine_tpu_torch.products.base import OptionType, Product, ProductFamily
+from montecarlo_risk_engine_tpu_torch.products.basket_option import BasketOption, BasketOptionType
 from montecarlo_risk_engine_tpu_torch.products.bond import Bond
 from montecarlo_risk_engine_tpu_torch.products.equity import Equity
 from montecarlo_risk_engine_tpu_torch.products.european_option import EuropeanOption

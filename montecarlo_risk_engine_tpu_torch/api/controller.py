@@ -16,7 +16,8 @@ of two routes:
   * a path kernel when the book is eligible (the model's
     ``supports_kernel_paths``, the pseudo-random sampler, no antithetic
     pairs): the Heston-QE kernel (ops/heston_qe.py) or the hybrid kernel
-    of ModelConfig books (ops/hybrid_paths.py).  Differentiated runs rebuild
+    (ops/hybrid_paths.py) of the Black-Scholes, BS-multi, Vasicek, CIR++,
+    Hull-White and Schwartz-2F models and of ModelConfig books.  Differentiated runs rebuild
     the paths from the kernel's frozen draws under AD (ops/paths_ad.py):
     emitted draws for Heston QE, draws recovered from the states for the
     invertible hybrid steps.  The kernel's dispatcher, not the controller,
@@ -256,12 +257,12 @@ class SimulationController:
         )
         if self.use_kernel is True:
             if not eligible:
-                raise ValueError(
-                    "use_kernel=True but the book is not kernel-eligible: the path kernels "
-                    "need a Heston model under QE without the martingale correction, or a "
-                    "ModelConfig of Black-Scholes / Vasicek / CIR++ models under EULER, with "
-                    "sampler='pseudo' and antithetic=False"
-                )
+                scheme = self.simulation_scheme.name
+                why = (f"{type(self.model).__name__} has no path kernel under {scheme} "
+                       "(its supports_kernel_paths)"
+                       if not self.model.supports_kernel_paths(self.simulation_scheme)
+                       else "the path kernels need sampler='pseudo' and antithetic=False")
+                raise ValueError(f"use_kernel=True but the book is not kernel-eligible: {why}")
             if self.noise_source is not None:
                 raise ValueError("use_kernel=True contradicts an injected noise_source")
             return True

@@ -13,6 +13,9 @@ it when the parameters require grad.
     threefry draws through this seam.
   * A zero-length interval (a timeline point at the calibration date or a
     repeated date) draws nothing and keeps its state (engine.py:251-253).
+  * Under ANALYTICAL the noise transform is the Cholesky factor of the
+    model's one-step covariance over each substep's dt (engine.py:244-245,
+    273-275); the other schemes use one factor of the noise-factor correlation.
 """
 
 from __future__ import annotations
@@ -91,12 +94,16 @@ def simulate_paths(
         return torch.zeros((0, num_paths, model.state_dim), dtype=dtype, device=device)
 
     state = model.init_state(params, num_paths).to(dtype)
-    chol = model.noise_transform(params, scheme).to(dtype)
+    analytical = scheme == SimulationScheme.ANALYTICAL
+    if not analytical:
+        chol = model.noise_transform(params, scheme).to(dtype)
     t_prev_list, dt_list = build_step_schedule(model.calibration_date, timeline)
     states = []
     for point_idx, (t_prev, dt_interval) in enumerate(zip(t_prev_list, dt_list)):
         if dt_interval > 0.0:
             dt = dt_interval / num_steps
+            if analytical:
+                chol = model.noise_transform(params, scheme, dt).to(dtype)
             for k in range(num_steps):
                 t1 = t_prev + k * dt
                 z, u = noise_source(point_idx * num_steps + k)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, real_dtype
+from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import hybrid_paths
 
 
 def params_from_numpy(np_params, device=None, dtype=None) -> Tuple[torch.Tensor, ...]:
@@ -78,9 +79,26 @@ class Model:
         """Driver-noise correlation (reference model.py:75-77 default: identity)."""
         return torch.eye(self.simulation_dim, dtype=params[0].dtype, device=params[0].device)
 
-    def noise_transform(self, params, scheme: SimulationScheme) -> torch.Tensor:
-        """Matrix L with correlated increments = z @ L.T
-        (reference generate_correlated_randn, model.py:38-48)."""
+    def covariance_matrix(self, params, delta_t) -> torch.Tensor:
+        """One-step noise covariance under the ANALYTICAL scheme (reference
+        model.py:79-81 default: identity * dt)."""
+        return torch.eye(self.simulation_dim, dtype=params[0].dtype,
+                         device=params[0].device) * delta_t
+
+    def analytic_factor_loadings(self, params):
+        """Per noise factor k: (a_k, vol_k) such that the ANALYTICAL noise
+        increment over [t, t + dt] is vol_k int_0^dt e^{-a_k (dt - u)} dW_k(u)
+        (a_k = 0 for a Brownian factor).  None where the exact transition is
+        not of that Gaussian form (JAX models/base.py:91-105)."""
+        return None
+
+    def noise_transform(self, params, scheme: SimulationScheme, delta_t=None) -> torch.Tensor:
+        """Matrix L with correlated increments = z @ L.T (reference
+        generate_correlated_randn, model.py:38-48): under ANALYTICAL the
+        Cholesky factor of the one-step covariance over ``delta_t``, else of
+        the noise-factor correlation."""
+        if scheme == SimulationScheme.ANALYTICAL:
+            return torch.linalg.cholesky(self.covariance_matrix(params, delta_t))
         return torch.linalg.cholesky(self.correlation_matrix(params, scheme))
 
     def uses_uniforms(self, scheme: SimulationScheme) -> bool:
@@ -114,16 +132,36 @@ class Model:
 
     # -- fused path kernel --------------------------------------------------
 
+    #: Schemes under which the model alone takes the hybrid path kernel K2
+    #: (the JAX model's ``supports_pallas_paths``).
+    kernel_schemes: Tuple[SimulationScheme, ...] = ()
+
     def supports_kernel_paths(self, scheme: SimulationScheme) -> bool:
         """Whether a hand-written path kernel exists for this model and
-        scheme (ops/heston_qe.py).  Its draws are the same Philox stream as
-        the engine's default noise, in float32."""
-        return False
+        scheme (ops/heston_qe.py, ops/hybrid_paths.py).  Its draws are the
+        same Philox stream as the engine's default noise, in float32."""
+        return scheme in self.kernel_schemes
+
+    def kernel_block(self, scheme: SimulationScheme, param_base: int = 0):
+        """The ``KernelBlock`` of K2 (ops/hybrid_paths.py) that steps this
+        model under ``scheme``, its parameters at ``param_base`` of the flat
+        vector; None where K2 has no such block."""
+        return None
+
+    def kernel_correlation(self) -> np.ndarray:
+        """Static correlation of the model's K2 noise factors (host array)."""
+        return np.eye(self.simulation_dim)
 
     def kernel_paths(self, params, scheme, timeline, num_paths: int,
                      num_steps: int, seed: int, phase: int = 0):
-        """States at each timeline point, [T, num_paths, state_dim] f32."""
-        raise NotImplementedError
+        """States at each timeline point, [T, num_paths, state_dim] f32:
+        the model as the one block of K2."""
+        if not self.supports_kernel_paths(scheme):
+            raise ValueError(f"{type(self).__name__} has no path kernel under {scheme.name}")
+        return hybrid_paths([self.kernel_block(scheme)],
+                            np.linalg.cholesky(self.kernel_correlation()), params, timeline,
+                            num_paths, num_steps, seed=seed, phase=phase,
+                            calibration_date=self.calibration_date)
 
     def kernel_paths_with_noise(self, params, scheme, timeline, num_paths: int,
                                 seed: int, phase: int = 0):
@@ -168,6 +206,12 @@ class Model:
         """Vectorised resolution of n same-kind requests on one asset:
         states_sel [n, N, state_dim] -> [n, N] (or [n])."""
         return self.resolve_obs(params, kind, asset_id, t1s, t2s, states_sel)
+
+
+def like(x, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` (a float, a sequence or a tensor) as a tensor of ``ref``'s
+    dtype and device."""
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
 
 
 def per_row(t, x):

@@ -9,9 +9,11 @@ State = [y, log_B]: log_B accumulates the pathwise integral of lambda (left
 Riemann), so SURVIVAL_PROBABILITY resolves to exp(-log_B) and
 CONDITIONAL_SURVIVAL_PROBABILITY to the closed form S(t, T | y_t).  Params
 (reference order): kappa, theta, sigma, y0.  Market hazards are static
-configuration.  This slice ports the full-truncation Euler step and its
-inversion; the Milstein and analytical steps and the deterministic mode
-(``deterministic=True``) are not ported yet.
+configuration.  The full-truncation Euler step and its inversion, and the
+deterministic mode (``deterministic=True``: y tracks the market hazard,
+cirpp.py:134-149), are ported; the Milstein and analytical steps are not
+yet.  Alone under EULER the model takes K2 as one "cirpp" or "cirpp_det"
+block (cirpp.py:151-187).
 """
 
 from __future__ import annotations
@@ -24,15 +26,14 @@ import torch
 
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
-from montecarlo_risk_engine_tpu_torch.models.base import Model, per_row
+from montecarlo_risk_engine_tpu_torch.models.base import Model, like, per_row
+from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import KernelBlock
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
 
 
-def _like(x, ref: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
-
-
 class CIRPPModel(Model):
+    kernel_schemes = (SimulationScheme.EULER,)
+
     def __init__(self, calibration_date: float, asset_id: str, hazard_rates: Dict[float, float],
                  kappa: float, theta: float, volatility: float, y0: float,
                  deterministic: bool = False):
@@ -42,8 +43,7 @@ class CIRPPModel(Model):
         self._init = (float(kappa), float(theta), float(volatility), float(y0))
         self.tenors = tuple(float(t) for t in hazard_rates.keys())
         self.hazard_rates = tuple(float(h) for h in hazard_rates.values())
-        if deterministic:
-            raise NotImplementedError("the deterministic CIR++ mode is not ported yet")
+        self.deterministic = bool(deterministic)
 
     def _initial_values(self):
         return self._init
@@ -61,8 +61,8 @@ class CIRPPModel(Model):
         return self.hazard_rates[idx]
 
     def _market_survival(self, t, ref: torch.Tensor) -> torch.Tensor:
-        return 1.0 - probability_of_default(_like(self.hazard_rates, ref),
-                                            _like(self.tenors, ref), _like(t, ref))
+        return 1.0 - probability_of_default(like(self.hazard_rates, ref),
+                                            like(self.tenors, ref), like(t, ref))
 
     # -- CIR closed forms (cirpp.py:89-125) ---------------------------------
 
@@ -74,7 +74,7 @@ class CIRPPModel(Model):
     def _A(self, params, t, T):
         kappa, theta, sigma, _ = params
         h = self._h(params)
-        dt = _like(T, h) - _like(t, h)
+        dt = like(T, h) - like(t, h)
         num = 2.0 * h * torch.exp(0.5 * (kappa + h) * dt)
         den = 2.0 * h + (kappa + h) * (torch.exp(h * dt) - 1.0)
         return (num / den) ** (2.0 * kappa * theta / (sigma * sigma))
@@ -82,7 +82,7 @@ class CIRPPModel(Model):
     def _B(self, params, t, T):
         kappa, _, sigma, _ = params
         h = self._h(params)
-        dt = _like(T, h) - _like(t, h)
+        dt = like(T, h) - like(t, h)
         e = torch.exp(h * dt) - 1.0
         return 2.0 * e / (2.0 * h + (kappa + h) * e)
 
@@ -106,10 +106,20 @@ class CIRPPModel(Model):
 
     def init_state(self, params, num_paths):
         y = params[3].expand(num_paths)
+        if self.deterministic:  # the market hazard at the calibration date
+            y = like(self.lambda_market(self.calibration_date), params[3]).expand(num_paths)
         return torch.stack([y, torch.zeros_like(y)], dim=-1)
+
+    def _step_deterministic(self, t1, t2, state):
+        # Track the market hazard exactly (cirpp.py:142-149).
+        log_b = state[:, 1] + self.lambda_market(t1) * (t2 - t1)
+        y = torch.full_like(state[:, 0], self.lambda_market(t2))
+        return torch.stack([y, log_b], dim=-1)
 
     def step_euler(self, params, t1, t2, state, corr_noise):
         # Full-truncation Euler with the lambda accumulator (cirpp.py:206-218).
+        if self.deterministic:
+            return self._step_deterministic(t1, t2, state)
         dt = t2 - t1
         y = state[:, 0]
         kappa, theta, sigma, _ = params
@@ -137,6 +147,8 @@ class CIRPPModel(Model):
         # whose tangent, 0, is the pathwise derivative.
         if scheme != SimulationScheme.EULER:
             raise NotImplementedError("CIRPPModel inverts the Euler step only")
+        if self.deterministic:  # consumes no noise (cirpp.py:195-196)
+            return torch.zeros_like(state[:, 0:1])
         kappa, theta, sigma, _ = params
         dt = t2 - t1
         y, y_next = state[:, 0:1], next_state[:, 0:1]
@@ -150,9 +162,18 @@ class CIRPPModel(Model):
 
     # -- survival quantities (cirpp.py:296-311) -----------------------------
 
+    def kernel_block(self, scheme, param_base=0):
+        if scheme != SimulationScheme.EULER:
+            return None
+        return KernelBlock("cirpp_det" if self.deterministic else "cirpp", "euler", param_base,
+                           2, 1, hazard_tenors=self.tenors, hazard_rates=self.hazard_rates)
+
     def survival_probability(self, params, t, T, y_t):
         """S(t, T | y_t); ``t``/``T`` floats or [n] tensors against y_t [n, N]."""
         y0 = params[3]
+        if self.deterministic:  # the market curve's ratio (cirpp.py:297-299)
+            ratio = self._market_survival(T, y0) / self._market_survival(t, y0)
+            return torch.ones_like(y_t) * per_row(ratio, y_t)
         a0t, a0T = self._A(params, 0.0, t), self._A(params, 0.0, T)
         b0t, b0T = self._B(params, 0.0, t), self._B(params, 0.0, T)
         sm_t, sm_T = self._market_survival(t, y0), self._market_survival(T, y0)

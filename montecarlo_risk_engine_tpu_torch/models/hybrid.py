@@ -12,11 +12,14 @@ with user-given inter-asset correlation (wrong-way risk).
     (hybrid.py:329-372).
   * The joint noise correlation is assembled block-wise: intra blocks from
     the sub-models, inter blocks from the user matrices (hybrid.py:136-150).
-  * Under EULER, when every sub-model is a Black-Scholes, Vasicek or
-    CIR++ model, paths come from the hybrid path kernel
-    (ops/hybrid_paths.py): its block descriptors and static joint Cholesky
-    factor come from :meth:`kernel_blocks` / :meth:`static_joint_correlation`
+  * Under EULER, when every sub-model is a Black-Scholes, BS-multi,
+    Vasicek, CIR++ (stochastic or deterministic) or Hull-White model, paths
+    come from the hybrid path kernel K2 (ops/hybrid_paths.py): its block
+    descriptors and static joint Cholesky factor come from
+    :meth:`kernel_blocks` / :meth:`static_joint_correlation`
     (hybrid.py:213-284).  The other models run on the engine.
+  * The joint ANALYTICAL covariance (hybrid.py:152-206) is not ported yet:
+    :meth:`covariance_matrix` raises.
 """
 
 from __future__ import annotations
@@ -29,8 +32,15 @@ import torch
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
+from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.models.cirpp import CIRPPModel
+from montecarlo_risk_engine_tpu_torch.models.hull_white import HullWhiteModel
 from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
+from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import MAX_SIM, hybrid_paths
+
+# Sub-model types with a K2 block inside a ModelConfig (hybrid.py:213-259):
+# Schwartz-2F's rho is a parameter, so its block is for the model alone.
+_KERNEL_TYPES = (BlackScholesModel, BlackScholesMulti, VasicekModel, CIRPPModel, HullWhiteModel)
 
 
 class ModelConfig(Model):
@@ -120,37 +130,36 @@ class ModelConfig(Model):
         corr = torch.cat(rows, dim=0)
         return 0.5 * (corr + corr.mT)
 
+    def covariance_matrix(self, params, delta_t):
+        raise NotImplementedError(
+            "the joint ANALYTICAL covariance of a ModelConfig (JAX hybrid.py:152-206) is not "
+            "ported yet; use EULER")
+
     def uses_uniforms(self, scheme):
         return any(m.uses_uniforms(scheme) for m in self.models)
 
     # -- path kernel (ops/hybrid_paths.py) ----------------------------------------
 
     def kernel_blocks(self):
-        """Block descriptors of the hybrid path kernel, or None when a
+        """Euler block descriptors of the hybrid path kernel, or None when a
         sub-model has no block there (hybrid.py:213-259)."""
-        from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import KernelBlock
-
-        blocks, base = [], 0
-        for m in self.models:
-            if type(m) is BlackScholesModel:
-                blocks.append(KernelBlock("bs", base, 1, 1))
-            elif type(m) is VasicekModel:
-                blocks.append(KernelBlock("vasicek", base, 2, 1))
-            elif type(m) is CIRPPModel:
-                blocks.append(KernelBlock("cirpp", base, 2, 1, hazard_tenors=m.tenors,
-                                          hazard_rates=m.hazard_rates))
-            else:
+        blocks = []
+        for i, m in enumerate(self.models):
+            if type(m) not in _KERNEL_TYPES:
                 return None
-            base += len(m._initial_values())
+            blocks.append(m.kernel_block(SimulationScheme.EULER, int(self._param_offsets[i])))
         return blocks
 
     def static_joint_correlation(self) -> np.ndarray:
-        """Host mirror of :meth:`correlation_matrix` for the kernel block set,
-        whose intra correlations are identities (hybrid.py:261-284)."""
+        """Host mirror of :meth:`correlation_matrix` for the kernel block set:
+        the intra blocks are identities but BS-multi's user correlation, the
+        inter blocks user configuration (hybrid.py:261-284)."""
         corr = np.eye(self.simulation_dim)
         pair_idx = 0
         for i in range(len(self.models)):
             r0, r1 = self._sim_offsets[i], self._sim_offsets[i + 1]
+            if isinstance(self.models[i], BlackScholesMulti):
+                corr[r0:r1, r0:r1] = self.models[i].kernel_correlation()
             for j in range(i + 1, len(self.models)):
                 c0, c1 = self._sim_offsets[j], self._sim_offsets[j + 1]
                 corr[r0:r1, c0:c1] = self._inter_corr[pair_idx]
@@ -159,16 +168,15 @@ class ModelConfig(Model):
         return corr
 
     def supports_kernel_paths(self, scheme):
-        return scheme == SimulationScheme.EULER and self.kernel_blocks() is not None
+        return (scheme == SimulationScheme.EULER and self.simulation_dim <= MAX_SIM
+                and self.kernel_blocks() is not None)
 
     def kernel_paths(self, params, scheme, timeline, num_paths, num_steps, seed, phase=0):
         """Joint trajectory from the hybrid path kernel: [T, N, D] f32 in
         block order."""
-        from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import hybrid_paths
-
         if not self.supports_kernel_paths(scheme):
-            raise ValueError("the hybrid path kernel needs EULER and bs / vasicek / cirpp "
-                             "sub-models only")
+            raise ValueError("the hybrid path kernel needs EULER and Black-Scholes, BS-multi, "
+                             "Vasicek, CIR++ or Hull-White sub-models only")
         return hybrid_paths(
             self.kernel_blocks(), np.linalg.cholesky(self.static_joint_correlation()),
             params, timeline, num_paths, num_steps, seed=seed, phase=phase,

@@ -4,8 +4,10 @@ Counterpart of ``montecarlo_risk_engine_tpu/models/vasicek.py``.  State =
 [r, log_B] with log_B the left-Riemann numeraire accumulator (the integral
 of r dt on the start state of each step, reference quirk Q3, kept so
 exposures match).  Params (reference order): rate, volatility, mean,
-mean_reversion_speed.  This slice ports the Euler step and its inversion;
-the exact OU step comes with the standalone Vasicek kernel route.
+mean_reversion_speed.  Exact OU (ANALYTICAL), Euler and Milstein (= Euler)
+steps with their inversions; alone under ANALYTICAL the model takes K2 as
+one exact "vasicek" block (vasicek.py:55-109), inside a ModelConfig an
+Euler one.
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ import torch
 
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme
 from montecarlo_risk_engine_tpu_torch.models.base import Model, per_row
+from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import KernelBlock
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
 
 
 class VasicekModel(Model):
+    kernel_schemes = (SimulationScheme.ANALYTICAL,)
+
     def __init__(self, calibration_date: float, rate: float, mean: float,
                  mean_reversion_speed: float, volatility: float, asset_id: str | None = None):
         super().__init__(calibration_date=calibration_date, state_dim=2, asset_ids=[asset_id])
@@ -35,6 +40,25 @@ class VasicekModel(Model):
         r0 = params[0].expand(num_paths)
         return torch.stack([r0, torch.zeros_like(r0)], dim=-1)
 
+    def covariance_matrix(self, params, delta_t):
+        # Exact conditional variance of the OU increment (vasicek.py:115-120).
+        _, sigma, _, a = params
+        decay = torch.exp(-a * delta_t)
+        return ((sigma * sigma / (2.0 * a)) * (1.0 - decay * decay)).reshape(1, 1)
+
+    def analytic_factor_loadings(self, params):
+        return [(params[3], params[1])]
+
+    def step_analytical(self, params, t1, t2, state, corr_noise):
+        # r' = theta + (r - theta) e^{-a dt} + eta (exact), log_B += r dt
+        # (left Riemann; vasicek.py:122-130).
+        _, _, theta, a = params
+        dt = t2 - t1
+        r = state[:, 0:1]
+        log_b = state[:, 1:2] + r * dt
+        r_next = theta + (r - theta) * torch.exp(-a * dt) + corr_noise
+        return torch.cat([r_next, log_b], dim=-1)
+
     def step_euler(self, params, t1, t2, state, corr_noise):
         # vasicek.py:132-138
         _, sigma, theta, a = params
@@ -44,14 +68,24 @@ class VasicekModel(Model):
         r_next = r + a * (theta - r) * dt + sigma * math.sqrt(dt) * corr_noise
         return torch.cat([r_next, log_b], dim=-1)
 
+    step_milstein = step_euler  # constant diffusion (vasicek.py:140-141)
+
     def invert_noise(self, params, scheme, t1, t2, state, next_state):
-        # Euler residual of the r column; log_B carries no noise (vasicek.py:65-77).
-        if scheme != SimulationScheme.EULER:
-            raise NotImplementedError("VasicekModel inverts the Euler step only")
+        # Exact-OU or Euler residual of the r column; log_B carries no noise
+        # (vasicek.py:65-77).
         _, sigma, theta, a = params
         dt = t2 - t1
         r, r_next = state[:, 0:1], next_state[:, 0:1]
+        if scheme == SimulationScheme.ANALYTICAL:
+            return r_next - theta - (r - theta) * torch.exp(-a * dt)
         return (r_next - r - a * (theta - r) * dt) / (sigma * math.sqrt(dt))
+
+    def kernel_block(self, scheme, param_base=0):
+        if scheme not in (SimulationScheme.ANALYTICAL, SimulationScheme.EULER):
+            return None
+        return KernelBlock("vasicek",
+                           "exact" if scheme == SimulationScheme.ANALYTICAL else "euler",
+                           param_base, 2, 1)
 
     def bond_price(self, params, t1, t2, rate_state):
         """Closed-form zero bond P(t1, t2 | r) (vasicek.py:143-149)."""

@@ -1,24 +1,36 @@
 """Hybrid-model path generation: the CUDA kernel K2 and its plain version.
 
 Replaces the TPU kernel ``hybrid_paths``
-(montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153) for its Euler blocks
-bs, vasicek and cirpp — the blocks of the north-star xVA book's ModelConfig.
-What it computes: joint paths of the sub-models, [T, N, D] float32 in block
-order.  Per substep ``sim_dim`` standard normals (Philox, the stream of
-``rng.substep_normals``) are combined through the static lower-triangular
-joint Cholesky factor, w = L z, and each block takes its Euler step:
+(montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153) whole: every block
+kind and scheme it implements.  What it computes: joint paths of the
+sub-models, [T, N, D] float32 in block order.  Per substep ``sim_dim``
+standard normals (Philox, the stream of ``rng.substep_normals``) are
+combined through the static lower-triangular joint Cholesky factor,
+w = L z, and each block takes its step (pallas_hybrid.py:286-416):
 
-  * bs:      S' = S (1 + r dt) + sigma S sqrt(dt) w             (emits S)
-  * vasicek: log_B' = log_B + r dt; r' = r + a (theta - r) dt + sigma sqrt(dt) w
-  * cirpp:   log_B' = log_B + (y + psi(t1)) dt;
-             y' = max(y + kappa (theta - y) dt + sigma sqrt(max(y, 0)) sqrt(dt) w, 1e-12)
+  * bs / bs_multi exact: log S' = log S + (r - sigma^2 / 2) dt + sigma sqrt(dt) w
+    (the state is log S, emitted as S); Euler: S' = S (1 + r dt) + sigma S sqrt(dt) w
+  * vasicek: log_B' = log_B + r dt; exact r' = theta + (r - theta) decay + scale w,
+    Euler r' = r + a (theta - r) dt + sigma sqrt(dt) w
+  * cirpp: log_B' = log_B + (y + psi(t1)) dt;
+    y' = max(y + kappa (theta - y) dt + sigma sqrt(max(y, 0)) sqrt(dt) w, 1e-12)
+  * cirpp_det: log_B' = log_B + lambda_mkt(t1) dt; y' = lambda_mkt(t1 + dt)
+    (its noise factor is drawn and not read, as in the TPU block layout)
+  * hw: log_B' = log_B + r dt; x = r - alpha(t1); exact x' = x decay + scale w,
+    Euler x' = x - a x dt + sigma sqrt(dt) w; r' = x' + alpha(t1 + dt)
+  * s2f: two raw normals (w, w2) correlated in the block with its own rho;
+    exact x' = x decay + std_x w, y' = y + mu dt + std_y (rho w + rho_c w2),
+    Euler with sigma sqrt(dt) in place of the exact std; log S' = log F0(t1 + dt) + x' + y'
 
 Kernel (``csrc/hybrid_paths.cu``, CUDA C++ for sm_90a, built by
-ops/cuda_build): one thread per path with the whole state in registers,
-block descriptors at run time, parameters as a device vector, the
-per-substep scalars (dt, sqrt(dt), psi per cirpp block) in a device table
-built here in torch — no host sync before the launch.  Bound by the bytes
-of its emission; see the source's note.
+ops/cuda_build): one thread per path, the state in registers as one *slot*
+per noise factor holding at most two state columns (:func:`kernel_slots`),
+slot descriptors read at run time, parameters as a device vector, the
+initial state as a device vector, and every per-substep constant (dt,
+sqrt(dt), psi, decay, scale, alpha, lambda_mkt, log F0, rho_c, the s2f
+stds) in a device table built here in torch from the device parameters:
+no host sync before the launch.  Bound by the bytes of its emission; see
+the source's note.
 
 :func:`hybrid_paths` dispatches on the device of ``params``: CUDA tensors
 launch the kernel (or raise), CPU tensors run
@@ -30,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,29 +50,47 @@ import torch
 from montecarlo_risk_engine_tpu_torch import rng
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 
-# csrc/hybrid_paths.cu kMaxBlocks: every supported block has one noise factor, so
-# this also bounds sim_dim.
-MAX_BLOCKS = 8
-_KINDS = {"bs": 0, "vasicek": 1, "cirpp": 2}
-_WIDTHS = {"bs": 1, "vasicek": 2, "cirpp": 2}
-_NUM_PARAMS = {"bs": 3, "vasicek": 4, "cirpp": 4}
+# csrc/hybrid_paths.cu kMaxSim: the most noise factors (= register slots) a
+# block list may have.
+MAX_SIM = 8
+
+# Slot roles (csrc/hybrid_paths.cu enum Role).
+GBM_EXACT, GBM_EULER, VAS_EXACT, VAS_EULER, CIRPP, CIRPP_DET = 0, 1, 2, 3, 4, 5
+HW_EXACT, HW_EULER, S2F_X_EXACT, S2F_X_EULER, S2F_Y_EXACT, S2F_Y_EULER = 6, 7, 8, 9, 10, 11
+
+# kind -> number of parameters (None: 2 n_state + 1 for bs_multi).  Every
+# kind takes the schemes "exact" and "euler"; cirpp and cirpp_det have one
+# step for both, as in the TPU kernel.
+_KINDS = {"bs": 3, "bs_multi": None, "vasicek": 4, "cirpp": 4, "cirpp_det": 4, "hw": 2, "s2f": 6}
+_WIDTHS = {"bs": (1, 1), "vasicek": (2, 1), "cirpp": (2, 1), "cirpp_det": (2, 1),
+           "hw": (2, 1), "s2f": (3, 2)}
+# per-substep table columns of a block, after dt and sqrt(dt): (euler, exact)
+_TABLE_COLS = {"vasicek": (0, 2), "cirpp": (1, 1), "cirpp_det": (2, 2), "hw": (2, 4),
+               "s2f": (2, 5)}
 
 
 @dataclass(frozen=True)
 class KernelBlock:
-    """One sub-model's slice of the joint kernel (pallas_hybrid.py:49-73).
+    """One sub-model's slice of the joint kernel (pallas_hybrid.py:49-117).
 
-    kind: "bs" | "vasicek" | "cirpp" (Euler); param_base: offset of the
-    block's parameters in the flat vector; n_state / n_sim: state and noise
-    widths; hazard_tenors / hazard_rates: the static market hazard curve of
-    a cirpp block."""
+    kind: "bs" | "bs_multi" | "vasicek" | "cirpp" | "cirpp_det" | "hw" | "s2f";
+    scheme: "exact" | "euler" (cirpp, cirpp_det: one step for both); param_base:
+    offset of the block's parameters in the flat vector; n_state / n_sim:
+    state and noise widths (bs_multi: both the asset count, parameters
+    [spots..., vols..., rate]); hazard_tenors / hazard_rates: the static
+    market hazard curve of a cirpp block; curve_times / curve_vals: the
+    static market curve of an hw block (pillars and the float64 segment
+    forwards) or an s2f block (baseline forward values)."""
 
     kind: str
+    scheme: str
     param_base: int
     n_state: int
     n_sim: int
     hazard_tenors: Tuple[float, ...] = field(default=())
     hazard_rates: Tuple[float, ...] = field(default=())
+    curve_times: Tuple[float, ...] = field(default=())
+    curve_vals: Tuple[float, ...] = field(default=())
 
     def lambda_market(self, t: float) -> float:
         """Piecewise-constant hazard, flat beyond the last tenor, with the
@@ -73,82 +103,225 @@ class KernelBlock:
                 return rate
         return self.hazard_rates[-1]
 
+    def hw_fwd0(self, t: float) -> float:
+        """Market forward f(0, t) from the float64 segment-forward table
+        (pallas_hybrid.py:89-108): right-continuous at pillars, the first and
+        last segment beyond the ends, the segment chosen by comparing in
+        float32 as the model's lookup does."""
+        ts = np.asarray(self.curve_times, dtype=np.float32)
+        idx = int(np.clip(np.searchsorted(ts, np.float32(t), side="right") - 1,
+                          0, len(self.curve_vals) - 1))
+        return float(self.curve_vals[idx])
 
-def _check_args(blocks, chol, params, num_paths, num_steps):
-    if not 0 < len(blocks) <= MAX_BLOCKS:
-        raise ValueError(f"hybrid_paths takes 1..{MAX_BLOCKS} blocks, got {len(blocks)}")
+    def s2f_logf0(self, t: float) -> float:
+        """log F0(t) of the baseline forward curve, linear inside and flat
+        beyond the ends (pallas_hybrid.py:110-117)."""
+        return float(np.log(np.interp(t, np.asarray(self.curve_times),
+                                      np.asarray(self.curve_vals))))
+
+
+class Slot(NamedTuple):
+    """One register slot of the kernel: a noise factor and the (at most
+    two) state columns it updates.  ``pa``/``pb``: parameter indices the
+    role reads; ``tcol``: its first table column; ``oa``/``ob``: the output
+    columns of its two state values (-1: none)."""
+
+    role: int
+    pa: int
+    pb: int
+    tcol: int
+    oa: int
+    ob: int
+
+
+def _check_blocks(blocks: Sequence[KernelBlock], num_params: int) -> None:
+    if not blocks:
+        raise ValueError("hybrid_paths needs at least one block")
     for b in blocks:
-        if b.kind not in _KINDS or b.n_state != _WIDTHS[b.kind] or b.n_sim != 1:
+        if b.kind not in _KINDS or b.scheme not in ("exact", "euler"):
+            raise ValueError(f"hybrid_paths has no {b.kind!r} block under {b.scheme!r}")
+        widths = (b.n_state, b.n_state) if b.kind == "bs_multi" else _WIDTHS[b.kind]
+        if (b.n_state, b.n_sim) != widths or b.n_state < 1:
             raise ValueError(f"hybrid_paths has no {b.kind!r} block of widths "
                              f"({b.n_state}, {b.n_sim})")
-    if np.asarray(chol).shape != (len(blocks), len(blocks)):
-        raise ValueError("chol must be [sim_dim, sim_dim]")
-    if any(b.param_base + _NUM_PARAMS[b.kind] > len(params) for b in blocks):
-        raise ValueError("a block's parameters lie beyond the parameter vector")
-    if num_steps < 1 or not 0 < num_paths < 2 ** 32:
-        raise ValueError(f"bad num_steps={num_steps} / num_paths={num_paths}")
+        n_par = _KINDS[b.kind] or 2 * b.n_state + 1
+        if b.param_base < 0 or b.param_base + n_par > num_params:
+            raise ValueError(f"the {b.kind!r} block's parameters lie beyond the parameter vector")
+        if b.kind in ("cirpp", "cirpp_det") and not b.hazard_rates:
+            raise ValueError(f"a {b.kind!r} block needs its hazard curve")
+        if b.kind in ("hw", "s2f") and not b.curve_vals:
+            raise ValueError(f"a {b.kind!r} block needs its market curve")
+    sim_dim = sum(b.n_sim for b in blocks)
+    if sim_dim > MAX_SIM:
+        raise ValueError(f"hybrid_paths takes at most {MAX_SIM} noise factors, got {sim_dim}")
 
 
-def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
-                  num_steps: int, calibration_date: float = 0.0) -> torch.Tensor:
-    """[T * num_steps, 2 + n_cirpp] float32 on the device of ``params``: per
-    substep dt, sqrt(dt) and psi(t1) of each cirpp block (zeros at the rows
-    of a zero-length point, which draws nothing).
+def kernel_slots(blocks: Sequence[KernelBlock]):
+    """(slots, state_dim, table_width) of a block list: the kernel's
+    register layout, one slot per noise factor in block order."""
+    slots: List[Slot] = []
+    off, tcol = 0, 2
+    for b in blocks:
+        base, exact = b.param_base, b.scheme == "exact"
+        if b.kind in ("bs", "bs_multi"):
+            n = b.n_state
+            rate = base + (2 if b.kind == "bs" else 2 * n)
+            for d in range(n):
+                sigma = base + (1 if b.kind == "bs" else n + d)
+                slots.append(Slot(GBM_EXACT if exact else GBM_EULER, sigma, rate, 0, off + d, -1))
+        elif b.kind == "vasicek":
+            slots.append(Slot(VAS_EXACT, base + 2, 0, tcol, off, off + 1) if exact
+                         else Slot(VAS_EULER, base + 1, 0, 0, off, off + 1))
+        elif b.kind == "cirpp":
+            slots.append(Slot(CIRPP, base, 0, tcol, off, off + 1))
+        elif b.kind == "cirpp_det":
+            slots.append(Slot(CIRPP_DET, 0, 0, tcol, off, off + 1))
+        elif b.kind == "hw":
+            slots.append(Slot(HW_EXACT if exact else HW_EULER, base, 0, tcol, off, off + 1))
+        else:  # s2f: state [log S, x, y]; slot x carries log S, slot y follows it
+            slots.append(Slot(S2F_X_EXACT if exact else S2F_X_EULER, base + 1, base + 2, tcol,
+                              off + 1, off))
+            slots.append(Slot(S2F_Y_EXACT if exact else S2F_Y_EULER, base + 3, base + 5, tcol,
+                              off + 2, -1))
+        off += b.n_state
+        tcol += _TABLE_COLS.get(b.kind, (0, 0))[b.scheme == "exact"]
+    return slots, off, tcol
 
-    dt and sqrt(dt) are host float64 values rounded once, as the TPU kernel
-    bakes them (pallas_hybrid.py:193-204); psi(t1) = lambda_mkt(t1) + D(t1)
-    - y0 E(t1) (pallas_hybrid.py:120-133) is computed in float64 on the
-    device from ``params`` and rounded, so no parameter crosses to the host."""
-    device = params[0].device
-    t1s, rows = [], []
+
+def _substeps(timeline: Sequence[float], num_steps: int, calibration_date: float):
+    """Per table row (t1, dt): num_steps rows per point; a zero-length
+    point's rows have dt = 0 (it draws nothing)."""
+    rows = []
     t_prev = float(calibration_date)
     for t in timeline:
         interval = float(t) - t_prev
         for k in range(num_steps):
             if interval > 0.0:
                 dt = interval / num_steps
-                t1s.append(t_prev + k * dt)
-                rows.append((dt, np.sqrt(dt)))
+                rows.append((t_prev + k * dt, dt))
             else:
-                t1s.append(0.0)
                 rows.append((0.0, 0.0))
         t_prev = float(t)
-    host = np.asarray(rows, dtype=np.float64).reshape(-1, 2)
-    cirpp = [b for b in blocks if b.kind == "cirpp"]
-    lam = np.asarray([[b.lambda_market(t1) for b in cirpp] for t1 in t1s],
-                     dtype=np.float64).reshape(len(t1s), len(cirpp))
-    host_t = torch.from_numpy(np.concatenate([host, np.asarray(t1s)[:, None], lam], axis=1))
+    return rows
+
+
+def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
+                  num_steps: int, calibration_date: float = 0.0) -> torch.Tensor:
+    """[T * num_steps, table_width] float32 on the device of ``params``: per
+    substep dt, sqrt(dt), then each block's columns (zeros at the rows of
+    a zero-length point):
+
+      * vasicek exact: decay = exp(-a dt), scale = sqrt(sigma^2 / (2a) (1 - decay^2))
+      * cirpp: psi(t1) = lambda_mkt(t1) + D(t1) - y0 E(t1) (pallas_hybrid.py:120-133)
+      * cirpp_det: lambda_mkt(t1), lambda_mkt(t1 + dt)
+      * hw: alpha(t1), alpha(t1 + dt) with alpha(t) = f(0, t) + sigma^2 / (2 a^2)
+        (1 - exp(-a (t - t0)))^2; exact adds decay, scale
+      * s2f: log F0(t1 + dt), rho_c = sqrt(max(1 - rho^2, 0)); exact adds decay,
+        std_x (the kappa -> 0 guard of pallas_hybrid.py:395-406), std_y = sigma_l sqrt(dt)
+
+    Host values (dt, the market curves) are float64; the parameter-dependent
+    ones are computed in float64 on the device from ``params`` and rounded
+    once, so no parameter crosses to the host."""
+    device = params[0].device
+    rows = _substeps(timeline, num_steps, calibration_date)
+    t1 = np.asarray([r[0] for r in rows], dtype=np.float64)
+    dt = np.asarray([r[1] for r in rows], dtype=np.float64)
+    host = [dt, np.sqrt(dt), t1]
+    for b in blocks:  # host curve values of every block, in block order
+        if b.kind == "cirpp":
+            host.append(np.asarray([b.lambda_market(t) for t in t1]))
+        elif b.kind == "cirpp_det":
+            host.append(np.asarray([b.lambda_market(t) for t in t1]))
+            host.append(np.asarray([b.lambda_market(t + h) for t, h in zip(t1, dt)]))
+        elif b.kind == "hw":
+            host.append(np.asarray([b.hw_fwd0(t) for t in t1]))
+            host.append(np.asarray([b.hw_fwd0(t + h) for t, h in zip(t1, dt)]))
+        elif b.kind == "s2f":
+            host.append(np.asarray([b.s2f_logf0(t + h) for t, h in zip(t1, dt)]))
+    host_t = torch.from_numpy(np.stack(host, axis=1).reshape(len(rows), len(host)))
     if device.type == "cuda":
         host_t = host_t.pin_memory()
     dev = host_t.to(device, non_blocking=True)
+    d_t, t1_t = dev[:, 0], dev[:, 2]
+    live = d_t > 0.0
+    one = torch.ones_like(d_t)
     cols = [dev[:, 0], dev[:, 1]]
-    t1 = dev[:, 2]
-    live = dev[:, 0] > 0.0
-    for j, b in enumerate(cirpp):
-        kappa, theta, sigma, y0 = (params[b.param_base + i].detach().to(torch.float64)
-                                   for i in range(4))
-        h = torch.sqrt(kappa * kappa + 2.0 * sigma * sigma)
-        et = torch.exp(h * t1)
-        den = 2.0 * h + (kappa + h) * (et - 1.0)
-        d_t = (2.0 * kappa * theta / (sigma * sigma)) * (0.5 * (kappa + h) - h * (kappa + h) * et / den)
-        e_t = 4.0 * h * h * et / (den * den)
-        psi = dev[:, 3 + j] + d_t - y0 * e_t
-        cols.append(torch.where(live, psi, torch.zeros_like(psi)))
-    return torch.stack(cols, dim=1).to(torch.float32)
+    hc = 3  # next host column
 
+    def p(b, i):
+        return params[b.param_base + i].detach().to(torch.float64)
 
-def _layout(blocks):
-    """(state offsets, psi columns, state_dim) of a block list."""
-    state_off, psi_col, off, n_cirpp = [], [], 0, 0
     for b in blocks:
-        state_off.append(off)
-        off += b.n_state
-        if b.kind == "cirpp":
-            psi_col.append(2 + n_cirpp)
-            n_cirpp += 1
+        if b.kind == "vasicek" and b.scheme == "exact":
+            sigma, a = p(b, 1), p(b, 3)
+            decay = torch.exp(-a * d_t)
+            cols += [decay, torch.sqrt((sigma * sigma / (2.0 * a)) * (1.0 - decay * decay))]
+        elif b.kind == "cirpp":
+            kappa, theta, sigma, y0 = (p(b, i) for i in range(4))
+            h = torch.sqrt(kappa * kappa + 2.0 * sigma * sigma)
+            et = torch.exp(h * t1_t)
+            den = 2.0 * h + (kappa + h) * (et - 1.0)
+            d_term = (2.0 * kappa * theta / (sigma * sigma)) * (0.5 * (kappa + h)
+                                                               - h * (kappa + h) * et / den)
+            e_term = 4.0 * h * h * et / (den * den)
+            cols.append(dev[:, hc] + d_term - y0 * e_term)
+            hc += 1
+        elif b.kind == "cirpp_det":
+            cols += [dev[:, hc], dev[:, hc + 1]]
+            hc += 2
+        elif b.kind == "hw":
+            sigma, a = p(b, 0), p(b, 1)
+            s2a = sigma * sigma / (2.0 * a * a)
+            d1 = t1_t - calibration_date
+            d2 = d1 + d_t
+            cols += [dev[:, hc] + s2a * (1.0 - torch.exp(-a * d1)) ** 2,
+                     dev[:, hc + 1] + s2a * (1.0 - torch.exp(-a * d2)) ** 2]
+            hc += 2
+            if b.scheme == "exact":
+                decay = torch.exp(-a * d_t)
+                cols += [decay, torch.sqrt((sigma * sigma / (2.0 * a)) * (1.0 - decay * decay))]
+        elif b.kind == "s2f":
+            kappa, sig_s, sig_l, rho = p(b, 1), p(b, 2), p(b, 4), p(b, 5)
+            cols += [dev[:, hc], torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0)) * one]
+            hc += 1
+            if b.scheme == "exact":
+                near0 = torch.abs(kappa) < 1e-12
+                k_safe = torch.where(near0, torch.ones_like(kappa), kappa)
+                decay = torch.where(near0, one, torch.exp(-kappa * d_t))
+                var_x = torch.where(near0, sig_s * sig_s * d_t,
+                                    (sig_s * sig_s / (2.0 * k_safe)) * (1.0 - decay * decay))
+                cols += [decay, torch.sqrt(var_x), sig_l * dev[:, 1]]
+    table = torch.stack(cols, dim=1)
+    table = torch.where(live[:, None], table, torch.zeros_like(table))
+    return table.to(torch.float32)
+
+
+def initial_state(blocks: Sequence[KernelBlock], params, calibration_date: float = 0.0):
+    """[state_dim] float32 on the device of ``params``: the kernel's internal
+    state at the calibration date (pallas_hybrid.py:219-273): log(spot) for
+    exact bs / bs_multi, spot for Euler, r0 and 0 for vasicek, y0 and 0 for
+    cirpp, lambda_mkt(t0) and 0 for cirpp_det, f(0, t0) and 0 for hw,
+    [log F0(t0), 0, 0] for s2f."""
+    device = params[0].device
+    vals: List[torch.Tensor] = []
+    const = lambda v: torch.full((), float(v), dtype=torch.float64, device=device)
+    p = lambda b, i: params[b.param_base + i].detach().to(torch.float64)
+    t0 = float(calibration_date)
+    for b in blocks:
+        if b.kind in ("bs", "bs_multi"):
+            spots = [p(b, d) for d in range(b.n_state)]
+            vals += [torch.log(s) for s in spots] if b.scheme == "exact" else spots
+        elif b.kind == "vasicek":
+            vals += [p(b, 0), const(0.0)]
+        elif b.kind == "cirpp":
+            vals += [p(b, 3), const(0.0)]
+        elif b.kind == "cirpp_det":
+            vals += [const(b.lambda_market(t0)), const(0.0)]
+        elif b.kind == "hw":
+            vals += [const(b.hw_fwd0(t0)), const(0.0)]
         else:
-            psi_col.append(0)
-    return state_off, psi_col, off
+            vals += [const(b.s2f_logf0(t0)), const(0.0), const(0.0)]
+    return torch.stack(vals).to(torch.float32)
 
 
 def _chol32(chol) -> np.ndarray:
@@ -169,58 +342,86 @@ def correlate(chol, z: torch.Tensor) -> List[torch.Tensor]:
     return w
 
 
-def hybrid_substep(blocks: Sequence[KernelBlock], prm, s0, s1, w, dt, sqrt_dt, row):
-    """One Euler substep of every block, the kernel's update op for op.
+def hybrid_substep(slots: Sequence[Slot], prm, a, b, w, row):
+    """One substep of every slot, the kernel's update op for op.
 
-    ``prm``: the parameters (0-d tensors); ``s0``/``s1``: per block its
-    first and second state column ([N] tensors; s1 unused by bs); ``w``:
-    per block its correlated noise [N]; ``dt``/``sqrt_dt``/``row``: the
-    substep's table entries (row[psi column] is a cirpp block's psi).
-    Returns the new (s0, s1) lists."""
-    _, psi_col, _ = _layout(blocks)
-    s0, s1 = list(s0), list(s1)
-    for bi, b in enumerate(blocks):
-        p = prm[b.param_base:b.param_base + 4]
-        if b.kind == "bs":
-            sigma, rate = p[1], p[2]
-            s = s0[bi]
-            s0[bi] = s * (1.0 + rate * dt) + sigma * s * sqrt_dt * w[bi]
-        elif b.kind == "vasicek":
-            sigma, theta, a = p[1], p[2], p[3]
-            r = s0[bi]
-            s1[bi] = s1[bi] + r * dt
-            s0[bi] = r + a * (theta - r) * dt + sigma * sqrt_dt * w[bi]
-        else:
-            kappa, theta, sigma = p[0], p[1], p[2]
-            y = s0[bi]
-            s1[bi] = s1[bi] + (y + row[psi_col[bi]]) * dt
+    ``prm``: the parameters (0-d tensors); ``a``/``b``: per slot its first
+    and second state value ([N] tensors; b is None where the slot has
+    one); ``w``: per slot its correlated noise [N]; ``row``: the substep's
+    table row (dt, sqrt(dt), then the block columns).  Returns the new
+    (a, b) lists."""
+    a, b = list(a), list(b)
+    dt, sqrt_dt = row[0], row[1]
+    for s, sl in enumerate(slots):
+        r, c = sl.role, sl.tcol
+        if r in (GBM_EXACT, GBM_EULER):
+            sigma, rate = prm[sl.pa], prm[sl.pb]
+            if r == GBM_EXACT:
+                a[s] = a[s] + (rate - 0.5 * sigma * sigma) * dt + sigma * sqrt_dt * w[s]
+            else:
+                a[s] = a[s] * (1.0 + rate * dt) + sigma * a[s] * sqrt_dt * w[s]
+        elif r == VAS_EXACT:
+            theta = prm[sl.pa]
+            b[s] = b[s] + a[s] * dt
+            a[s] = theta + (a[s] - theta) * row[c] + row[c + 1] * w[s]
+        elif r == VAS_EULER:
+            sigma, theta, am = prm[sl.pa], prm[sl.pa + 1], prm[sl.pa + 2]
+            rr = a[s]
+            b[s] = b[s] + rr * dt
+            a[s] = rr + am * (theta - rr) * dt + sigma * sqrt_dt * w[s]
+        elif r == CIRPP:
+            kappa, theta, sigma = prm[sl.pa], prm[sl.pa + 1], prm[sl.pa + 2]
+            y = a[s]
+            b[s] = b[s] + (y + row[c]) * dt
             sqrt_y = torch.sqrt(torch.clamp(y, min=0.0))
-            s0[bi] = torch.clamp(
-                y + kappa * (theta - y) * dt + sigma * sqrt_y * sqrt_dt * w[bi], min=1e-12)
-    return s0, s1
+            a[s] = torch.clamp(y + kappa * (theta - y) * dt + sigma * sqrt_y * sqrt_dt * w[s],
+                               min=1e-12)
+        elif r == CIRPP_DET:
+            b[s] = b[s] + row[c] * dt
+            a[s] = row[c + 1].expand_as(b[s])
+        elif r in (HW_EXACT, HW_EULER):
+            b[s] = b[s] + a[s] * dt
+            x = a[s] - row[c]
+            if r == HW_EXACT:
+                x = x * row[c + 2] + row[c + 3] * w[s]
+            else:
+                sigma, am = prm[sl.pa], prm[sl.pa + 1]
+                x = x - am * x * dt + sigma * sqrt_dt * w[s]
+            a[s] = x + row[c + 1]
+        elif r == S2F_X_EXACT:
+            a[s] = a[s] * row[c + 2] + row[c + 3] * w[s]
+        elif r == S2F_X_EULER:
+            kappa, sig_s = prm[sl.pa], prm[sl.pb]
+            a[s] = a[s] - kappa * a[s] * dt + sig_s * sqrt_dt * w[s]
+        else:  # S2F_Y_*: the factor rho w + rho_c w2, then log S into slot s - 1
+            mu_l, rho = prm[sl.pa], prm[sl.pb]
+            drive = rho * w[s - 1] + row[c + 1] * w[s]
+            if r == S2F_Y_EXACT:
+                a[s] = a[s] + mu_l * dt + row[c + 4] * drive
+            else:
+                sig_l = prm[sl.pa + 1]
+                a[s] = a[s] + mu_l * dt + sig_l * sqrt_dt * drive
+            b[s - 1] = row[c] + a[s - 1] + a[s]
+    return a, b
 
 
 def hybrid_paths_reference(blocks: Sequence[KernelBlock], chol, params,
                            timeline: Sequence[float], num_paths: int, num_steps: int,
                            seed: int = 0, phase: int = 0, calibration_date: float = 0.0):
     """Plain PyTorch version of the kernel, float32 on the device of
-    ``params``: the same Philox words, the same table, the same operations
-    in the same order."""
+    ``params``: the same Philox words, the same table and initial state,
+    the same operations in the same order."""
     _check_args(blocks, chol, params, num_paths, num_steps)
     f32 = torch.float32
     device = params[0].device
+    slots, state_dim, _ = kernel_slots(blocks)
     table = substep_table(blocks, params, timeline, num_steps, calibration_date)
+    init = initial_state(blocks, params, calibration_date)
     prm = [p.detach().to(f32) for p in params]
     c32 = _chol32(chol)
-    sim_dim = len(blocks)
 
-    s0: List[torch.Tensor] = []
-    s1: List[torch.Tensor] = []
-    for b in blocks:
-        first = prm[b.param_base + 3] if b.kind == "cirpp" else prm[b.param_base]
-        s0.append(first.expand(num_paths))
-        s1.append(torch.zeros((num_paths,), dtype=f32, device=device))
-
+    a = [init[sl.oa].expand(num_paths) for sl in slots]
+    b = [init[sl.ob].expand(num_paths) if sl.ob >= 0 else None for sl in slots]
     out = []
     t_prev = float(calibration_date)
     for point, t in enumerate(timeline):
@@ -228,19 +429,26 @@ def hybrid_paths_reference(blocks: Sequence[KernelBlock], chol, params,
         live, t_prev = float(t) > t_prev, float(t)
         if live:
             for k in range(num_steps):
-                row = table[row0 + k]
-                dt, sqrt_dt = row[0], row[1]
-                z = rng.substep_normals(seed, phase, row0 + k, num_paths, sim_dim, f32, device)
-                s0, s1 = hybrid_substep(blocks, prm, s0, s1, correlate(c32, z), dt, sqrt_dt, row)
-        cols = []
-        for bi, b in enumerate(blocks):
-            cols.append(s0[bi])
-            if b.kind != "bs":
-                cols.append(s1[bi])
-        out.append(torch.stack(cols, dim=-1))
+                z = rng.substep_normals(seed, phase, row0 + k, num_paths, len(slots), f32, device)
+                a, b = hybrid_substep(slots, prm, a, b, correlate(c32, z), table[row0 + k])
+        cols = [None] * state_dim
+        for s, sl in enumerate(slots):
+            cols[sl.oa] = torch.exp(a[s]) if sl.role == GBM_EXACT else a[s]
+            if sl.ob >= 0:
+                cols[sl.ob] = b[s]
+        out.append(torch.stack([c.expand(num_paths) for c in cols], dim=-1))
     if not out:
-        return torch.zeros((0, num_paths, _layout(blocks)[2]), dtype=f32, device=device)
+        return torch.zeros((0, num_paths, state_dim), dtype=f32, device=device)
     return torch.stack(out)
+
+
+def _check_args(blocks, chol, params, num_paths, num_steps):
+    _check_blocks(blocks, len(params))
+    sim_dim = sum(b.n_sim for b in blocks)
+    if np.asarray(chol).shape != (sim_dim, sim_dim):
+        raise ValueError("chol must be [sim_dim, sim_dim]")
+    if num_steps < 1 or not 0 < num_paths < 2 ** 32:
+        raise ValueError(f"bad num_steps={num_steps} / num_paths={num_paths}")
 
 
 def _bind(lib: ctypes.CDLL):
@@ -248,7 +456,8 @@ def _bind(lib: ctypes.CDLL):
     int_p = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, params, table
-        ctypes.c_int, int_p, int_p, int_p, int_p,              # blocks, kinds, bases, offs, psi
+        ctypes.c_void_p,                                       # init
+        ctypes.c_int, int_p, int_p, int_p, int_p, int_p, int_p,  # slots: role, pa, pb, tcol, oa, ob
         ctypes.POINTER(ctypes.c_float),                        # chol
         ctypes.c_int, ctypes.c_int,                            # state_dim, table_width
         ctypes.c_int, ctypes.c_int, ctypes.c_uint32,           # points, steps, paths
@@ -263,21 +472,21 @@ def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
             calibration_date):
     fn = _bind(cuda_build.load_library("hybrid_paths").lib)
     device = params[0].device
-    state_off, psi_col, state_dim = _layout(blocks)
+    slots, state_dim, _ = kernel_slots(blocks)
     n_pts = len(timeline)
     out = torch.empty((n_pts, num_paths, state_dim), dtype=torch.float32, device=device)
     if n_pts == 0:
         return out
     table = substep_table(blocks, params, timeline, num_steps, calibration_date)
-    prm = torch.stack([p.detach().to(torch.float32) for p in params]).contiguous()
-    nb = len(blocks)
-    ints = lambda xs: (ctypes.c_int * nb)(*xs)
+    init = initial_state(blocks, params, calibration_date)
+    prm = torch.stack(params).detach().to(torch.float32)
+    ns = len(slots)
+    ints = lambda xs: (ctypes.c_int * ns)(*xs)
     c32 = _chol32(chol).reshape(-1)
     with torch.cuda.device(device):
         rc = fn(
-            out.data_ptr(), prm.data_ptr(), table.data_ptr(),
-            nb, ints([_KINDS[b.kind] for b in blocks]), ints([b.param_base for b in blocks]),
-            ints(state_off), ints(psi_col),
+            out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(),
+            ns, *(ints([sl[i] for sl in slots]) for i in range(6)),
             (ctypes.c_float * c32.size)(*c32.tolist()),
             state_dim, table.shape[1], n_pts, num_steps, num_paths,
             seed & 0xFFFFFFFF, phase & 0xFFFFFFFF,

@@ -8,10 +8,12 @@ Counterpart of ``montecarlo_risk_engine_tpu/ops/pallas_paths_ad.py``
      substep boundary an emission point, one substep per point).
   2. The draws of every step are frozen: recovered from consecutive kernel
      states by ``model.invert_noise`` and a triangular solve against the
-     noise transform L(params) (:func:`recovered_noise_fns`: Black-Scholes,
-     Vasicek, CIR++ and their ModelConfig hybrids), or taken from the
-     noise-emitting kernel (:func:`emitted_noise_fns`: Heston QE, whose
-     branch mixing is not invertible).
+     noise transform L(params) (:func:`recovered_noise_fns`: every model of
+     K2 and their ModelConfig hybrids; under ANALYTICAL L is the Cholesky
+     factor of the one-step covariance over each step's dt,
+     pallas_paths_ad.py:293-298), or taken from the noise-emitting kernel
+     (:func:`emitted_noise_fns`: Heston QE, whose branch mixing is not
+     invertible).
   3. ``model.step`` re-runs in plain torch on the frozen draws with
      parameters that carry tangents or require grad.  The draws do not
      depend on the parameters, so AD through this reconstruction is the
@@ -80,17 +82,35 @@ def _schedule(calibration_date: float, dense):
     return out
 
 
+class _Transforms:
+    """The noise transform L(params) of each step: one factor of the noise
+    correlation, or under ANALYTICAL the factor of the one-step covariance
+    over the step's dt, computed once per distinct dt."""
+
+    def __init__(self, model, scheme, params):
+        self._model, self._scheme, self._params = model, scheme, params
+        self._dtype = params[0].dtype
+        self._by_dt = {}
+
+    def __call__(self, dt: float) -> torch.Tensor:
+        key = dt if self._scheme.name == "ANALYTICAL" else None
+        if key not in self._by_dt:
+            self._by_dt[key] = self._model.noise_transform(self._params, self._scheme,
+                                                           key).to(self._dtype)
+        return self._by_dt[key]
+
+
 def _reconstruct(model, scheme, dense, slots, num_coarse, num_paths, params, z, u=None):
     """Coarse states [T, N, D] rebuilt from the frozen standard normals z
     [T', N, sim_dim] (and uniforms u [T', N]) by ``model.step`` in the
     dtype of ``params``."""
     dtype = params[0].dtype
     state = model.init_state(params, num_paths).to(dtype)
-    chol = model.noise_transform(params, scheme).to(dtype)
+    transform = _Transforms(model, scheme, params)
     coarse = [None] * num_coarse
     for i, (t_prev, dt) in enumerate(_schedule(model.calibration_date, dense)):
         if dt > 0.0:
-            noise = correlate_noise(z[i].to(dtype), chol)
+            noise = correlate_noise(z[i].to(dtype), transform(dt))
             state = model.step(params, scheme, t_prev, t_prev + dt, state, noise,
                                None if u is None else u[i].to(dtype))
         coarse[slots[i]] = state
@@ -109,7 +129,8 @@ def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
         recovered without grad in the dtype of ``params``: the correlated
         noise of each step by ``model.invert_noise`` on consecutive states
         (dt = 1 stands in at zero-length steps, whose noise is unused), then
-        z = L^-1 noise by ``torch.linalg.solve_triangular``;
+        z = L^-1 noise by ``torch.linalg.solve_triangular``, one solve per
+        step;
       * ``recon_fn(params, z)``: coarse states [T, N, D] rebuilt from z;
         ``recon_fn(p, noise_fn(p))`` is the kernel's trajectory.
     """
@@ -126,19 +147,18 @@ def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
             dtype = params[0].dtype
             states = forward_fn(params).to(dtype)
             prev = model.init_state(params, num_paths).to(dtype)
-            corr = []
+            transform = _Transforms(model, scheme, params)
+            z = []
             for i, (t_prev, dt) in enumerate(_schedule(model.calibration_date, dense)):
                 dt_safe = dt if dt > 0.0 else 1.0
-                corr.append(model.invert_noise(params, scheme, t_prev, t_prev + dt_safe,
-                                               prev, states[i]))
+                corr = model.invert_noise(params, scheme, t_prev, t_prev + dt_safe, prev,
+                                          states[i])
+                # noise = z L^T row by row, so z = noise L^-T: one solve from
+                # the right over the step's N rows, contiguous in and out.
+                z.append(torch.linalg.solve_triangular(transform(dt_safe).mT, corr, upper=True,
+                                                       left=False))
                 prev = states[i]
-            corr = torch.stack(corr)  # [T', N, sim_dim]
-            chol = model.noise_transform(params, scheme).to(dtype)
-            # noise = z L^T row by row, so z = noise L^-T: one solve from
-            # the right over all T' N rows, contiguous in and out.
-            z = torch.linalg.solve_triangular(chol.mT, corr.reshape(-1, corr.shape[-1]),
-                                              upper=True, left=False)
-        return z.reshape(corr.shape)
+        return torch.stack(z)  # [T', N, sim_dim]
 
     def recon_fn(params, z):
         return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z)

@@ -16,6 +16,7 @@ import torch
 from scipy.integrate import quad
 
 from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
+from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.models.heston import HestonModel
 from montecarlo_risk_engine_tpu_torch.products.base import (
     OptionType,
@@ -78,8 +79,23 @@ class EuropeanOption(Product):
             return spot * ndtr(d1) - disc_k * ndtr(d2)
         return disc_k * ndtr(-d2) - spot * ndtr(-d1)
 
+    def _bs_spot_vol_rate(self, model, params):
+        """(spot, sigma, rate) of this option's asset (european_option.py:75-80)."""
+        if isinstance(model, BlackScholesMulti):
+            idx = model.asset_ids.index(self.get_asset_id())
+            return params[idx], params[model.num_assets + idx], params[2 * model.num_assets]
+        return params[0], params[1], params[2]
+
+    def supports_analytic_pv(self, model) -> bool:
+        return isinstance(model, (BlackScholesModel, BlackScholesMulti))
+
     def supports_analytic_exposure(self, model) -> bool:
-        return isinstance(model, BlackScholesModel)
+        return isinstance(model, (BlackScholesModel, BlackScholesMulti))
+
+    def compute_pv_analytically(self, model, params):
+        """Black-Scholes price at the calibration date (european_option.py:97-100)."""
+        spot, sigma, rate = self._bs_spot_vol_rate(model, params)
+        return self.bs_price(spot, rate, sigma, self.exercise_date - model.calibration_date)
 
     def compute_discounted_exposure_analytically(self, exposure_time, spot, numeraire, model,
                                                  params):
@@ -88,7 +104,7 @@ class EuropeanOption(Product):
         spot = torch.reshape(spot, (-1,))
         if tau <= 0.0:
             return torch.zeros_like(spot)
-        _, sigma, rate = params
+        _, sigma, rate = self._bs_spot_vol_rate(model, params)
         return self.bs_price(spot, rate, sigma, tau) / torch.reshape(numeraire, (-1,))
 
     # -- Heston semi-analytic price (host-side oracle) ----------------------------

@@ -21,3 +21,14 @@ def symmetric_linear_smoothing(x: torch.Tensor, is_fuzzy: bool, eps: float) -> t
 
 def compute_degree_of_truth(x: torch.Tensor, is_fuzzy: bool, eps: float = 0.05) -> torch.Tensor:
     return symmetric_linear_smoothing(x, is_fuzzy, eps)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation with flat extrapolation at both ends,
+    the arithmetic of ``jnp.interp``: f = fp[i-1] + ((x - xp[i-1]) / dx) df
+    on the segment i = clip(searchsorted(xp, x, right), 1, len - 1)."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[0] - 1)
+    dx = xp[i] - xp[i - 1]
+    f = fp[i - 1] + ((x - xp[i - 1]) / dx) * (fp[i] - fp[i - 1])
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

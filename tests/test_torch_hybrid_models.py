@@ -29,6 +29,7 @@ from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import (
     hybrid_paths,
     hybrid_paths_reference,
     hybrid_substep,
+    kernel_slots,
     substep_table,
 )
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
@@ -89,16 +90,16 @@ def test_param_names_and_values_match_jax():
 def test_kernel_blocks_match_jax():
     jm, pm = north_star_model(mj), north_star_model(port_pkg())
     for jb, pb in zip(jm._kernel_blocks(), pm.kernel_blocks()):
-        assert (pb.kind, pb.param_base, pb.n_state, pb.n_sim) == (
-            jb.kind, jb.param_base, jb.n_state, jb.n_sim)
+        assert (pb.kind, pb.scheme, pb.param_base, pb.n_state, pb.n_sim) == (
+            jb.kind, jb.scheme, jb.param_base, jb.n_state, jb.n_sim)
         assert pb.hazard_tenors == jb.hazard_tenors and pb.hazard_rates == jb.hazard_rates
         for t in (0.0, 0.5, 1.0, 1.0 + 1e-9, 2.0, 4.999, 5.0, 7.0, 12.0):
             if pb.kind == "cirpp":
                 assert pb.lambda_market(t) == jb.lambda_market(t)
     assert pm.supports_kernel_paths(SimulationScheme.EULER)
     assert not pm.supports_kernel_paths(SimulationScheme.QE)
-    with pytest.raises(NotImplementedError):
-        CIRPPModel(0.0, "cp", HAZARDS, 0.1, 0.01, 0.02, 1e-4, deterministic=True)
+    det = ModelConfig([CIRPPModel(0.0, "cp", HAZARDS, 0.1, 0.01, 0.02, 1e-4, deterministic=True)])
+    assert [b.kind for b in det.kernel_blocks()] == ["cirpp_det"]
     heston = ModelConfig([BlackScholesModel(0.0, 100.0, 0.03, 0.2, asset_id="eq"),
                           mt_heston()])
     assert heston.kernel_blocks() is None
@@ -178,17 +179,16 @@ def test_kernel_substep_matches_jax_step():
     w = rs.standard_normal((n, 3))
     ref = np.asarray(jm.step(jm.initial_params(), mj.SimulationScheme.EULER, t1, t1 + dt,
                              jnp.asarray(state), jnp.asarray(w)))
-    blocks = pm.kernel_blocks()
+    slots, _, _ = kernel_slots(pm.kernel_blocks())
     params = pm.initial_params()
     cp = pm.models[2]
     psi = cp.psi(params[7:], t1)  # float64 here; the kernel's table rounds it to float32
     row = torch.stack([torch.tensor(dt, dtype=torch.float64),
                        torch.tensor(np.sqrt(dt), dtype=torch.float64), psi])
     s = torch.from_numpy(state)
-    s0, s1 = hybrid_substep(blocks, list(params), [s[:, 0], s[:, 2], s[:, 3]],
-                            [s[:, 1], None, s[:, 4]], list(torch.from_numpy(w).unbind(1)),
-                            row[0], row[1], row)
-    out = torch.stack([s0[0], s1[0], s0[1], s0[2], s1[2]], dim=-1)
+    a, b = hybrid_substep(slots, list(params), [s[:, 0], s[:, 2], s[:, 3]],
+                          [s[:, 1], None, s[:, 4]], list(torch.from_numpy(w).unbind(1)), row)
+    out = torch.stack([a[0], b[0], a[1], a[2], b[2]], dim=-1)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-18)
 
 
@@ -227,15 +227,14 @@ def test_plain_kernel_trajectory_follows_its_substep():
     assert out.shape == (len(TIMELINE), 500, 5) and out.dtype == torch.float32
     assert torch.equal(out[0], out[0, :1].expand(500, 5))  # t = 0: no step
     table = substep_table(blocks, params, TIMELINE, 2)
+    slots, _, _ = kernel_slots(blocks)
     prm = list(params)
-    s0 = [p.expand(500) for p in (prm[0], prm[4], prm[10])]
-    s1 = [torch.zeros(500), None, torch.zeros(500)]
+    a = [p.expand(500) for p in (prm[0], prm[4], prm[10])]
+    b = [torch.zeros(500), None, torch.zeros(500)]
     for k in range(2):
-        row = table[2 + k]
         z = rng.substep_normals(1, 42, 2 + k, 500, 3, torch.float32, "cpu")
-        s0, s1 = hybrid_substep(blocks, prm, s0, s1, correlate(chol.astype(np.float32), z),
-                                row[0], row[1], row)
-    assert torch.equal(out[1], torch.stack([s0[0], s1[0], s0[1], s0[2], s1[2]], -1))
+        a, b = hybrid_substep(slots, prm, a, b, correlate(chol.astype(np.float32), z), table[2 + k])
+    assert torch.equal(out[1], torch.stack([a[0], b[0], a[1], a[2], b[2]], -1))
     # Vasicek's left-Riemann accumulator and the CIR++ floor hold.
     assert float(out[..., 3].min()) >= np.float32(1e-12)
     assert torch.all(out[1:, :, 4] > 0)
@@ -276,17 +275,30 @@ def test_dispatcher_runs_plain_on_cpu_and_refuses_other_devices(monkeypatch, tmp
     with pytest.raises(RuntimeError, match="nvcc"):
         hybrid_paths(blocks, chol, on_card, TIMELINE, 300, 1)
     assert hybrid_paths.launches == before
-    with pytest.raises(ValueError):
-        hybrid_paths([KernelBlock("hw", 0, 2, 1)], np.eye(1), params, TIMELINE, 300, 1)
+    with pytest.raises(ValueError):  # an hw block needs its market curve
+        hybrid_paths([KernelBlock("hw", "euler", 0, 2, 1)], np.eye(1), params, TIMELINE, 300, 1)
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("name,scheme", [
+    ("north_star", SimulationScheme.EULER), ("bs", SimulationScheme.ANALYTICAL),
+    ("bs_multi", SimulationScheme.ANALYTICAL), ("vasicek", SimulationScheme.ANALYTICAL),
+    ("cirpp_det", SimulationScheme.EULER), ("hw", SimulationScheme.ANALYTICAL),
+    ("hw", SimulationScheme.EULER), ("s2f", SimulationScheme.ANALYTICAL),
+    ("s2f", SimulationScheme.EULER), ("mixed", SimulationScheme.EULER)])
+def test_cuda_kernel_matches_plain_version(name, scheme):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
-    pm = north_star_model(port_pkg())
+    from test_torch_hybrid_blocks import make, mixed
+
+    pm = {"north_star": lambda: north_star_model(port_pkg()),
+          "mixed": lambda: mixed(mt_pkg())}.get(name, lambda: make(name, mt_pkg()))()
     params = pm.initial_params(device="cuda", dtype=torch.float32)
-    blocks, chol = pm.kernel_blocks(), np.linalg.cholesky(pm.static_joint_correlation())
+    if isinstance(pm, ModelConfig):
+        blocks, corr = pm.kernel_blocks(), pm.static_joint_correlation()
+    else:
+        blocks, corr = [pm.kernel_block(scheme)], pm.kernel_correlation()
+    chol = np.linalg.cholesky(corr)
     before = hybrid_paths.launches
     out = hybrid_paths(blocks, chol, params, TIMELINE, 50_000, 2, seed=9, phase=42)
     torch.cuda.synchronize()
@@ -294,3 +306,9 @@ def test_cuda_kernel_matches_plain_version():
     ref = hybrid_paths_reference(blocks, chol, params, TIMELINE, 50_000, 2, seed=9, phase=42)
     close = torch.isclose(out, ref, rtol=1e-5, atol=1e-6).all(dim=-1).all(dim=0)
     assert float(close.double().mean()) >= 0.9999
+
+
+def mt_pkg():
+    import montecarlo_risk_engine_tpu_torch
+
+    return montecarlo_risk_engine_tpu_torch
