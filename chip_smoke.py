@@ -26,12 +26,19 @@ plain PyTorch version:
 Phases:
 
   1. take the card, print its name and power limit (nvidia-smi);
-  2. build both kernels from the sources in this checkout (concurrent nvcc,
-     sm_90a), print their registers and spills, and fail on a stack frame
-     or a spill in K2;
+  2. build K1 and K2 from the sources in this checkout, K2 once per block
+     tuple the script launches (concurrent nvcc, sm_90a); print each
+     kernel's ptxas frame and fail if ptxas reports a spill in any K1 or
+     K2 kernel, or a stack frame over the 32 bytes of sincosf's reduction
+     array; count each kernel's issued instructions per path-substep from
+     the SASS (cuobjdump) for its issue-slot time;
   3. compare each kernel with its plain version on the card at its main
-     path's shapes and time both calls (CUDA events, warm median of 5): K1,
-     K2 on the north-star shapes, and the K2 ladder of every (block, scheme);
+     path's shapes, bitwise, and time the call (CUDA events, warm median
+     of 5), the launch alone (events around the kernel's C call) and the
+     wrapper's host time: K1; K2 and its table prologue on the north-star
+     shapes; K2 on ragged and misaligned launches; K1 and K2 under
+     torch.cuda.set_sync_debug_mode("error"); the K2 ladder of every
+     (block, scheme);
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
@@ -41,27 +48,39 @@ Phases:
      jacobian against the engine route's on the same Philox stream, the 1y
      delta against a central difference of the closed form;
   6. north-star book: counts to 0, forward and differentiated runs, counts
-     read (K2: one launch per phase, two per run); CVA against the JAX
-     package's 16M-path value, EPE and PFE printed, the kernel-route values
-     and CVA/EPE jacobian against the engine route's on the same stream;
+     read (K2 and its prologue: one launch each per phase, two per run);
+     CVA against the JAX package's 16M-path value, EPE and PFE printed, the
+     kernel-route values and CVA/EPE jacobian against the engine route's
+     on the same stream;
   7. the other K2 routes, each with its counts from 0 and its own oracle;
   8. profile the BS-multi book (after all the walls: a profiler run
      slows the launches that follow it);
   9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
+``--split-only`` runs only the call / launch-only / wrapper split of K1
+and K2 at the main paths' shapes, the warm walls of the three books and
+the north-star forward run's host profile, for the package beside this
+file; a copy of the file run from another
+checkout's root measures that tree the same way (parent and change in
+turns, in one call).
+
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--split-only]
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -70,6 +89,8 @@ import torch
 import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
+from montecarlo_risk_engine_tpu_torch.ops import heston_qe as k1_module
+from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
@@ -117,6 +138,10 @@ ASSETS = tuple(f"asset_{i}" for i in range(4))
 # Device peaks for the bounds (NVIDIA H100 SXM data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # outside the tensor cores
+# Issue slots: each of the 4 schedulers of each of the 132 SMs issues one
+# warp instruction (32 lanes) per cycle.
+ISSUE_LANES_PER_CYCLE = 132 * 4 * 32
 # Operations per path-substep counted from the sources, one per float or
 # integer add, multiply, compare, select, conversion, division or
 # transcendental call (a lower bound on the issue slots):
@@ -216,6 +241,59 @@ def median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def split_ms(module, run, reps: int = 5, bind: str = "_bind"):
+    """(launch-only, wrapper host) ms of one wrapper call, warm medians of
+    ``reps`` runs.  The module's ``bind`` hook, which returns the kernel's C
+    function, is wrapped for the duration: launch-only is CUDA events
+    recorded just before and after that C call, its inputs prepared;
+    wrapper is the host clock from the call's start to that C call, with no
+    sync inside.  The same code measures any tree whose wrapper binds its
+    kernel through ``bind`` at each call."""
+    real = getattr(module, bind)
+    mark = {}
+
+    def timed_bind(lib):
+        fn = real(lib)
+
+        def timed(*args):
+            mark["host"] = time.perf_counter() - mark["t0"]
+            mark["start"].record()
+            rc = fn(*args)
+            mark["end"].record()
+            return rc
+
+        return timed
+
+    setattr(module, bind, timed_bind)
+    launch, host = [], []
+    try:
+        for i in range(reps + 1):
+            mark["start"] = torch.cuda.Event(enable_timing=True)
+            mark["end"] = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            mark["t0"] = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i:  # the first run is the warm-up
+                launch.append(mark["start"].elapsed_time(mark["end"]))
+                host.append(mark["host"] * 1e3)
+    finally:
+        setattr(module, bind, real)
+    return statistics.median(launch), statistics.median(host)
+
+
+def call_split(label, module, run, bound_ms=None, issue_ms=None, bind="_bind"):
+    """Call, launch-only and wrapper time of one kernel's wrapper, printed
+    on a [time] line; returns the three."""
+    ms = median_ms(run)
+    launch_ms, wrapper_ms = split_ms(module, run, bind=bind)
+    extra = "" if bound_ms is None else f", bound {bound_ms:.4f} ms"
+    extra += "" if issue_ms is None else f", issue-slot {issue_ms:.4f} ms"
+    print(f"[time] {label}: call {ms:.4f} ms, launch-only {launch_ms:.4f} ms, "
+          f"wrapper {wrapper_ms:.4f} ms (host){extra}")
+    return ms, launch_ms, wrapper_ms
+
+
 def wall_seconds(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -224,8 +302,9 @@ def wall_seconds(fn) -> float:
     return time.perf_counter() - t0
 
 
-def compare_kernel(params, timeline, steps, smoothing, emit, min_close):
-    """Kernel vs plain version on the card; returns the max abs state error."""
+def compare_kernel(params, timeline, steps, smoothing, emit, min_close, bitwise=True):
+    """Kernel vs plain version on the card; returns the max abs state error.
+    ``bitwise``: the states must equal the plain version's exactly."""
     out = heston_qe_paths(params, timeline, NUM_PATHS, steps, seed=SEED, phase=PHASE,
                           smoothing=smoothing, emit_noise=emit)
     ref = heston_qe_paths_reference(params, timeline, NUM_PATHS, steps, seed=SEED,
@@ -237,6 +316,7 @@ def compare_kernel(params, timeline, steps, smoothing, emit, min_close):
         z_err = float((out[1] - ref[1]).abs().max())
         check(torch.isclose(out[1], ref[1], rtol=1e-6, atol=1e-6).all().item(),
               f"{label}: normals differ (max abs {z_err:.3e})")
+        check(not bitwise or torch.equal(out[1], ref[1]), f"{label}: normals not bitwise")
         out, ref = out[0], ref[0]
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite states")
     close = torch.isclose(out, ref, rtol=1e-5, atol=1e-6).all(dim=-1).all(dim=0)
@@ -245,16 +325,18 @@ def compare_kernel(params, timeline, steps, smoothing, emit, min_close):
     mean_k = out[-1].double().mean(dim=0)
     mean_r = ref[-1].double().mean(dim=0)
     mean_rel = float(((mean_k - mean_r).abs() / mean_r.abs()).max())
+    same = torch.equal(out, ref)
     print(f"  {label}: paths within rtol 1e-5/atol 1e-6 {frac:.6f}, max abs err {err:.3e}, "
-          f"rel err of mean (log S_T, v_T) {mean_rel:.3e}, bitwise {torch.equal(out, ref)}")
+          f"rel err of mean (log S_T, v_T) {mean_rel:.3e}, bitwise {same}")
     check(frac >= min_close, f"{label}: only {frac:.6f} of paths agree")
     check(mean_rel <= 1e-6, f"{label}: terminal means differ by {mean_rel:.3e}")
+    check(not bitwise or same, f"{label}: states not bitwise equal to the plain version")
     return err
 
 
 def compare_hybrid(label, blocks, chol, params, timeline, steps, phase, num_paths):
-    """K2 vs its plain version on the card; returns (max abs state error,
-    bitwise)."""
+    """K2 vs its plain version on the card, bitwise; returns (max abs state
+    error, bitwise)."""
     out = hybrid_paths(blocks, chol, params, timeline, num_paths, steps, seed=SEED, phase=phase)
     ref = hybrid_paths_reference(blocks, chol, params, timeline, num_paths, steps, seed=SEED,
                                  phase=phase)
@@ -270,7 +352,32 @@ def compare_hybrid(label, blocks, chol, params, timeline, steps, phase, num_path
           f"max abs err {err:.3e}, rel err of terminal means {mean_rel:.3e}")
     check(frac >= 0.9999, f"K2 {label}: only {frac:.6f} of paths agree")
     check(mean_rel <= 1e-6, f"K2 {label}: terminal means differ by {mean_rel:.3e}")
+    check(bitwise, f"K2 {label}: states not bitwise equal to the plain version")
     return err, bitwise
+
+
+def compare_table(label, blocks, params, timeline, steps):
+    """K2's table prologue vs its plain version (substep_table,
+    initial_state, the parameters rounded to float32) on the card, bitwise;
+    a column that differs is named with its largest gap in float32 ulps.
+    Returns (the prologue's table, the largest absolute gap of its three
+    outputs)."""
+    from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import (
+        hybrid_table, initial_state, substep_table)
+
+    table, prm, init = hybrid_table(blocks, params, timeline, steps)
+    plain = (substep_table(blocks, params, timeline, steps),
+             torch.stack(params).detach().to(torch.float32), initial_state(blocks, params))
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k, p in zip(("table", "parameters", "initial state"), (table, prm, init), plain):
+        err = max(err, float((k.double() - p.double()).abs().max()))
+        if not torch.equal(k, p):
+            ulps = (k.view(torch.int32).long() - p.view(torch.int32).long()).abs()
+            cols = ulps.reshape(len(k), -1).amax(dim=0).tolist() if k.dim() > 1 else ulps.tolist()
+            print(f"  {label}: prologue {name} differs from the plain version, ulps by column {cols}")
+        check(torch.equal(k, p), f"K2 {label}: the prologue's {name} is not bitwise")
+    return table, err
 
 
 def k2_ops(blocks, chol, timeline, steps: int, num_paths: int) -> float:
@@ -288,42 +395,94 @@ def k2_ops(blocks, chol, timeline, steps: int, num_paths: int) -> float:
     return num_paths * (live_substeps(timeline, steps) * per_substep + len(timeline) * per_point)
 
 
-def k2_rung(label, blocks, chol, params, timeline, steps, num_paths=NUM_PATHS, phase=PHASE):
-    """One rung of the K2 ladder: kernel vs plain version, both timed, and
-    the bound; returns the row of the kernels' JSON line (launches filled
-    in by the main path that runs it)."""
+def k2_rung(label, blocks, chol, params, timeline, steps, num_paths=NUM_PATHS, phase=PHASE,
+            issue=None):
+    """One rung of the K2 ladder: the table prologue and the kernel vs their
+    plain versions, the call and its split timed, the plain version timed,
+    the bound and (with ``issue``) the issue-slot time; returns the row of
+    the kernels' JSON line (launches filled in by the main path that runs
+    it)."""
+    compare_table(label, blocks, params, timeline, steps)
     err, bitwise = compare_hybrid(label, blocks, chol, params, timeline, steps, phase, num_paths)
     run = lambda: hybrid_paths(blocks, chol, params, timeline, num_paths, steps, seed=SEED,
                                phase=phase)
     run_plain = lambda: hybrid_paths_reference(blocks, chol, params, timeline, num_paths, steps,
                                                seed=SEED, phase=phase)
     plain_ms = median_ms(run_plain)
-    ms = median_ms(run)
     state_dim = kernel_slots(blocks)[1]
     substeps = num_paths * live_substeps(timeline, steps)
     t_bound, by = bound(len(timeline) * num_paths * state_dim * 4,
                         k2_ops(blocks, chol, timeline, steps, num_paths))
+    issue_ms = None if issue is None else issue.slot_ms(
+        f"K2 {label}", cuda_build.load_library("hybrid_paths", k2_module.role_flags(blocks)),
+        "hybrid_kernelILb1E" if num_paths * state_dim % 4 == 0 else "hybrid_kernelILb0E",
+        substeps)
+    ms, launch_ms, wrapper_ms = call_split(f"K2 {label}", k2_module, run, t_bound, issue_ms)
     print(f"    [{len(timeline)} points x {steps} substeps, D={state_dim}] call {ms:.4f} ms "
           f"({substeps / ms * 1e3:.3e} path-steps/s), plain {plain_ms:.3f} ms, bound "
-          f"{t_bound:.4f} ms by {by} ({t_bound / ms:.1%} of it reached by the call)")
+          f"{t_bound:.4f} ms by {by} ({t_bound / ms:.1%} of it reached by the call, "
+          f"{t_bound / launch_ms:.1%} by the launch)")
     return {"name": f"hybrid_paths[{label}]", "route": "cuda",
             "source": "montecarlo_risk_engine_tpu_torch/csrc/hybrid_paths.cu",
             "replaces": "montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "launch_ms": launch_ms, "wrapper_ms": wrapper_ms}
 
 
-def model_rung(label, c, device, phase=PHASE):
-    """The ladder rung of a controller's K2 run at its own shapes: its
-    model's blocks, scheme, timeline and substeps, float32 parameters."""
+# float64 operations per table row of each prologue column group, counted
+# from csrc/hybrid_paths.cu table_kernel (one per add, multiply, division,
+# exp, sqrt, compare or select), and one conversion per float32 column.
+TABLE_GROUP_OPS = {0: 10, 1: 31, 2: 0, 3: 20, 4: 30, 5: 4, 6: 21}
+
+
+def table_row(blocks, params, timeline, steps):
+    """The table prologue's row of the kernels' JSON line: its call and
+    split against its plain version (substep_table, initial_state and the
+    float32 parameters) at the given shapes."""
+    from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import (
+        _table_groups, hybrid_table, initial_state, substep_table, table_inputs)
+
+    run = lambda: hybrid_table(blocks, params, timeline, steps)
+    run_plain = lambda: (substep_table(blocks, params, timeline, steps),
+                         torch.stack(params).detach().to(torch.float32),
+                         initial_state(blocks, params))
+    table, err = compare_table("table prologue", blocks, params, timeline, steps)
+    plain_ms = median_ms(run_plain)
+    rows, width = table.shape
+    host_width = table_inputs(tuple(blocks), tuple(timeline), steps, 0.0,
+                              params[0].device).host.shape[1]
+    n_par, dim = len(params), kernel_slots(blocks)[1]
+    nbytes = rows * host_width * 8 + n_par * 8 + (rows * width + n_par + dim) * 4
+    ops = rows * (width + sum(TABLE_GROUP_OPS[g[0]] for g in _table_groups(blocks))) + n_par + dim
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_OPS_PER_S * 1e3
+    t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ms, launch_ms, wrapper_ms = call_split("K2 table prologue", k2_module, run, t_bound,
+                                           bind="_bind_table")
+    print(f"    [{rows} rows x {width} columns] plain {plain_ms:.3f} ms")
+    return {"name": "hybrid_table", "route": "cuda",
+            "source": "montecarlo_risk_engine_tpu_torch/csrc/hybrid_paths.cu",
+            "replaces": "montecarlo_risk_engine_tpu/ops/pallas_hybrid.py:153",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "launch_ms": launch_ms, "wrapper_ms": wrapper_ms}
+
+
+def blocks_of(c):
+    """(K2 blocks, static correlation) of a controller's model."""
     m = c.model
     if isinstance(m, mt.ModelConfig):
-        blocks, corr = m.kernel_blocks(), m.static_joint_correlation()
-    else:
-        blocks, corr = [m.kernel_block(c.simulation_scheme)], m.kernel_correlation()
-    params = m.initial_params(device=device, dtype=torch.float32)
+        return m.kernel_blocks(), m.static_joint_correlation()
+    return [m.kernel_block(c.simulation_scheme)], m.kernel_correlation()
+
+
+def model_rung(label, c, device, issue=None, phase=PHASE):
+    """The ladder rung of a controller's K2 run at its own shapes: its
+    model's blocks, scheme, timeline and substeps, float32 parameters."""
+    blocks, corr = blocks_of(c)
+    params = c.model.initial_params(device=device, dtype=torch.float32)
     return k2_rung(label, blocks, np.linalg.cholesky(corr), params, c.simulation_timeline,
-                   c.num_steps, c.num_paths_mainsim, phase)
+                   c.num_steps, c.num_paths_mainsim, phase, issue)
 
 
 def heston_main_path(device):
@@ -447,7 +606,7 @@ def ns_jacobian(results, metric):
 
 def north_star_main_path():
     """Phase 6: the north-star book; returns K2's launches in it."""
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     fwd = north_star(NS_PATHS, False)
     check(fwd._kernel_active, "the north-star book is not on the kernel path")
     results = fwd.run_simulation()
@@ -608,7 +767,7 @@ def same_values(kernel, engine, label, rtol=1e-4, atol=1e-6):
 def euro_main_path():
     """Phase 4: the BS-multi European book; returns K2's launches in it and
     its forward and differentiated runs, profiled at the end."""
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     fwd, products = euro_book(EURO_OPTIONS)
     check(fwd._kernel_active, "the European book is not on the kernel path")
     results = fwd.run_simulation()
@@ -708,7 +867,7 @@ def basket_phase():
                                    [mt.NettingSet(name=f"basket_{i}", products=[p])
                                     for i, p in enumerate(baskets())],
                                    mt.SimulationScheme.ANALYTICAL, 1, use_kernel=use_kernel)
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     kernel = make("auto")
     check(kernel._kernel_active, "the basket book is not on the kernel path")
     results = kernel.run_simulation()
@@ -743,7 +902,7 @@ def hw_phase(scheme):
     ANALYTICAL the differentiated vol / mean-reversion derivatives against
     a common-random-number central difference of the same kernel stream
     (tests/test_pallas_controller_tpu.py:468-505)."""
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     kernel = hw_book(scheme)
     check(kernel._kernel_active, "the Hull-White bond is not on the kernel path")
     pv_k, _ = pv_of(kernel.run_simulation(), "bond")
@@ -781,7 +940,7 @@ def s2f_book(scheme, differentiate, use_kernel="auto"):
 def s2f_phase(scheme):
     """Schwartz-2F call, differentiated: kernel vs engine PV within 4
     combined SE + 1e-4, the vol and rho derivatives within 10 % + 1e-3."""
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     kernel = s2f_book(scheme, True)
     check(kernel._kernel_active, "the Schwartz-2F call is not on the kernel path")
     r_k = kernel.run_simulation()
@@ -878,7 +1037,7 @@ def route_phase(spec):
     """One K2 route: kernel vs engine values on one stream, and the book's
     PV against its oracle where it has one; returns K2's launches."""
     title, _, _, _, _, oracle, tol = spec
-    hybrid_paths.launches = 0
+    reset_k2_counts()
     kernel = route_book(spec)
     check(kernel._kernel_active, f"{title}: not on the kernel path")
     r_k = kernel.run_simulation()
@@ -913,64 +1072,369 @@ def mixed_model():
                                         np.array([[0.1]]), np.array([[0.15]])])
 
 
-def k2_ladder(device):
+def k2_ladder(device, issue=None):
     """Phase 3c: every (block, scheme) of K2 against its plain version at
     the shapes of the book that runs it (the mixed ModelConfig at the
     north star's 57 points); returns the rows by label."""
     A, E, M = (mt.SimulationScheme.ANALYTICAL, mt.SimulationScheme.EULER,
                mt.SimulationScheme.MILSTEIN)
     print(f"[kernel] hybrid_paths ladder at {NUM_PATHS} paths")
-    rows = {"bs_multi exact": model_rung("bs_multi exact", euro_book(EURO_OPTIONS)[0], device)}
+    rows = {"bs_multi exact": model_rung("bs_multi exact", euro_book(EURO_OPTIONS)[0], device,
+                                         issue)}
     for label, spec in route_specs().items():
         if label != "bs_multi, vasicek, hw, cirpp_det euler":
-            rows[label] = model_rung(label, route_book(spec), device)
-    rows["hw exact"] = model_rung("hw exact", hw_book(A), device)
-    rows["hw euler"] = model_rung("hw euler", hw_book(M), device)
-    rows["s2f exact"] = model_rung("s2f exact", s2f_book(A, False), device)
-    rows["s2f euler"] = model_rung("s2f euler", s2f_book(E, False), device)
+            rows[label] = model_rung(label, route_book(spec), device, issue)
+    rows["hw exact"] = model_rung("hw exact", hw_book(A), device, issue)
+    rows["hw euler"] = model_rung("hw euler", hw_book(M), device, issue)
+    rows["s2f exact"] = model_rung("s2f exact", s2f_book(A, False), device, issue)
+    rows["s2f euler"] = model_rung("s2f euler", s2f_book(E, False), device, issue)
     mixed = mixed_model()
     ns_dense, _ = dense_timeline(0.0, north_star(NS_PATHS, False).simulation_timeline, 1)
     rows["bs_multi, vasicek, hw, cirpp_det euler"] = k2_rung(
         "bs_multi, vasicek, hw, cirpp_det euler", mixed.kernel_blocks(),
         np.linalg.cholesky(mixed.static_joint_correlation()),
-        mixed.initial_params(device=device, dtype=torch.float32), ns_dense, 1)
+        mixed.initial_params(device=device, dtype=torch.float32), ns_dense, 1, issue=issue)
     return rows
 
 
-def main():
+def k2_block_tuples():
+    """The blocks of every K2 launch of this script (one build per tuple of
+    slot roles)."""
+    A, E, M = (mt.SimulationScheme.ANALYTICAL, mt.SimulationScheme.EULER,
+               mt.SimulationScheme.MILSTEIN)
+    books = [route_book(spec) for spec in route_specs().values()]
+    books += [hw_book(A), hw_book(M), s2f_book(A, False), s2f_book(E, False)]
+    return ([north_star(NS_PATHS, False).model.kernel_blocks(), [bs_multi_model().kernel_block(A)]]
+            + [blocks_of(c)[0] for c in books])
+
+
+def ragged_rungs(device):
+    """K2 where the bulk copy cannot store every tile, bitwise against its
+    plain version: the north-star blocks (D = 5) at N = 1, 257 and
+    1,000,003, where N * D * 4 is not a multiple of 16 (the coalesced-store
+    variant), and the BS-multi block (D = 4) at N = 257 (bulk copies and a
+    ragged last block)."""
+    ns = north_star(NS_PATHS, False).model
+    dense, _ = dense_timeline(0.0, north_star(NS_PATHS, False).simulation_timeline, 1)
+    blocks, chol = ns.kernel_blocks(), np.linalg.cholesky(ns.static_joint_correlation())
+    params = ns.initial_params(device=device, dtype=torch.float32)
+    print("[kernel] hybrid_paths on ragged and misaligned launches")
+    for n in (1, 257, 1_000_003):
+        compare_table(f"north-star blocks, N={n}", blocks, params, dense, 1)
+        compare_hybrid(f"north-star blocks, N={n} (coalesced stores)", blocks, chol, params,
+                       dense, 1, PHASE, n)
+    m = bs_multi_model()
+    timeline = tuple(0.5 + 0.25 * i for i in range(10))
+    compare_hybrid("bs_multi, N=257 (bulk copies, ragged last block)",
+                   [m.kernel_block(mt.SimulationScheme.ANALYTICAL)],
+                   np.linalg.cholesky(m.kernel_correlation()),
+                   m.initial_params(device=device, dtype=torch.float32), timeline, 1, PHASE, 257)
+
+
+def sync_free(k1_params, k2_args):
+    """K1's and K2's wrappers under torch.cuda.set_sync_debug_mode("error"),
+    with K2's input cache emptied first and then warm: no call may
+    synchronise the host with the card."""
+    from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import slot_inputs, table_inputs
+
+    torch.cuda.synchronize()
+    table_inputs.cache_clear()
+    slot_inputs.cache_clear()
+    dense, _ = dense_timeline(0.0, MATURITIES, NUM_STEPS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            heston_qe_paths(k1_params, MATURITIES, NUM_PATHS, NUM_STEPS, seed=SEED, phase=PHASE)
+            heston_qe_paths(k1_params, dense, NUM_PATHS, 1, seed=SEED, phase=PHASE,
+                            emit_noise=True)
+            hybrid_paths(*k2_args, seed=SEED, phase=PHASE)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[sync] K1 (forward and emit) and K2 (table prologue and paths, cold and warm cache) "
+          "ran under set_sync_debug_mode('error'): no host sync")
+
+
+def find_cuobjdump():
+    """The toolkit's cuobjdump, else the copy in Triton's package; None if
+    neither is there."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for path in (os.path.join(home, "bin", "cuobjdump"), shutil.which("cuobjdump"),
+                 "/usr/local/cuda/bin/cuobjdump"):
+        if path and os.access(path, os.X_OK):
+            return path
+    try:
+        import triton
+
+        path = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                            "cuobjdump")
+        return path if os.access(path, os.X_OK) else None
+    except ImportError:
+        return None
+
+
+def sass_of(built) -> str:
+    """cuobjdump -sass of a built kernel library ('' without cuobjdump)."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return ""
+    return subprocess.run([tool, "-sass", str(built.path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+
+
+def ptxas_frames(log: str):
+    """{kernel: "N bytes stack frame, ...; Used N registers ..."} from nvcc's
+    -Xptxas -v output."""
+    frames, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            name = re.search(r"(hybrid_kernel|table_kernel|heston_qe_kernel)(I\w*?EEv)?", kernel)
+            if name:  # hybrid_kernelILi4ELb1EEv... -> hybrid_kernel<4,1>
+                args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
+                kernel = name.group(1) + (f"<{','.join(args)}>" if args else "")
+            continue
+        if kernel and "stack frame" in line:
+            frames[kernel] = line.strip()
+        elif kernel and "registers" in line:
+            frames[kernel] = f"{frames.get(kernel, '')}; {line.split(':', 1)[-1].strip()}"
+    return frames
+
+
+def sass_functions(text: str):
+    """{kernel name: [(address, instruction, branch target or None)]} from
+    cuobjdump -sass output."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            t = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", m.group(2))
+            cur.append((int(m.group(1), 16), m.group(2), int(t.group(1), 16) if t else None))
+    return funcs
+
+
+def substep_loop(ins):
+    """The substep loop of a path kernel's SASS: (its instructions, the
+    addresses of its slow paths).  The loop is the innermost one that holds
+    a Philox call (ten rounds of two 32-bit multiplies), or the innermost
+    loop where no draw is read (a deterministic CIR++ block alone); a slow
+    path is a region a forward branch inside it skips that holds
+    local-memory or CALL instructions: the large-argument sincos reduction
+    and the special cases of IEEE division and square root."""
+    loops = [(t, a) for a, op, t in ins if t is not None and t < a]
+    philox = [(t, a) for t, a in loops
+              if sum(bool(re.search(r"\bIMAD\.(WIDE|HI)\.U32\b", o))
+                     for x, o, _ in ins if t <= x <= a) >= 10]
+    loops = philox or loops
+    lo, hi = min(loops, key=lambda r: r[1] - r[0])
+    body = [i for i in ins if lo <= i[0] <= hi]
+    slow = set()
+    for a, op, t in body:
+        if t is not None and t > a and op.startswith("@"):
+            region = [x for x, o, _ in body if a < x < t]
+            if any(re.search(r"\b(STL|LDL|CALL)", o) for x, o, _ in body if a < x < t):
+                slow.update(region)
+    return body, slow
+
+
+class IssueSlots:
+    """Issued instructions per path-substep of a path kernel, counted from
+    its SASS (the instructions of the substep loop less its slow paths,
+    which these launches never enter), and the least time the SMs' issue
+    slots need for them: instructions x path-substeps / (132 SMs x 4
+    schedulers x 32 lanes x the SM clock)."""
+
+    def __init__(self, clock_mhz: float):
+        self.clock_hz = clock_mhz * 1e6
+        self._sass = {}
+
+    def functions(self, built):
+        if built.path not in self._sass:
+            self._sass[built.path] = sass_functions(sass_of(built))
+        return self._sass[built.path]
+
+    def per_substep(self, built, kernel: str):
+        """Instructions per path-substep of the first kernel whose name holds
+        ``kernel`` (None without cuobjdump)."""
+        funcs = self.functions(built)
+        name = next((n for n in funcs if kernel in n), None)
+        if name is None:
+            return None
+        body, slow = substep_loop(funcs[name])
+        return len(body) - len(slow)
+
+    def slot_ms(self, label, built, kernel, path_substeps):
+        n = self.per_substep(built, kernel)
+        if n is None:
+            print(f"[sass] {label}: not measured (no cuobjdump)")
+            return None
+        ms = n * path_substeps / (ISSUE_LANES_PER_CYCLE * self.clock_hz) * 1e3
+        print(f"[sass] {label}: {n} instructions per path-substep -> issue-slot time {ms:.4f} ms "
+              f"over {path_substeps:.3e} path-substeps at {self.clock_hz / 1e6:.0f} MHz")
+        return ms
+
+
+# The stack a kernel may have: the 7-word reduction array of sincosf's
+# large-argument path (|x| >= 105615; the angles here lie in [0, 2 pi)),
+# which ptxas keeps in local memory in K2 once the kernel holds a bulk copy.
+SINCOS_STACK_BYTES = 32
+# Every kernel instance of each source, as ptxas_frames names them.
+KERNELS = {"heston_qe": ["heston_qe_kernel<0,0>", "heston_qe_kernel<0,1>",
+                         "heston_qe_kernel<1,0>", "heston_qe_kernel<1,1>"],
+           "hybrid_paths": ["hybrid_kernel<0>", "hybrid_kernel<1>", "table_kernel"]}
+
+
+def local_memory_gate(name, built):
+    """A build of ``csrc/<name>.cu``: ptxas reports every kernel instance of
+    :data:`KERNELS`, none with a spill store or load, and no stack frame
+    beyond :data:`SINCOS_STACK_BYTES`."""
+    frames = {k: f for k, f in ptxas_frames(built.log).items() if k in KERNELS[name]}
+    check(sorted(frames) == KERNELS[name], f"{built.path.name}: ptxas reported {sorted(frames)}")
+    for kernel, frame in frames.items():
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      frame)
+        check(m is not None, f"{kernel}: no stack frame in the ptxas report: {frame}")
+        stack, stores, loads = (int(x) for x in m.groups())
+        check(stores == 0 and loads == 0 and stack <= SINCOS_STACK_BYTES,
+              f"{built.path.name} {kernel} uses local memory: {frame}")
+
+
+def reset_k2_counts():
+    """K2's counts to 0: the paths kernel's and its table prologue's."""
+    hybrid_paths.launches = 0
+    k2_module.hybrid_table.launches = 0
+
+
+def card():
+    """The card, its nvidia-smi line (name, power limit) printed; exits
+    non-zero without CUDA."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU")
-    device = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    t_start = time.perf_counter()
+    return torch.device("cuda"), smi
 
-    # 2. build both kernels concurrently
-    for name, built in cuda_build.load_libraries(["heston_qe", "hybrid_paths"]).items():
-        how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
-        print(f"[build] {name}: {how} -> {built.path.name}")
-        for line in built.log.splitlines():
-            if "Compiling entry function" in line:
-                print(f"  {line.split(chr(39))[1]}")
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                print(f"  {line.strip()}")
-                if name == "hybrid_paths" and "stack frame" in line:
-                    check(line.strip().startswith("0 bytes stack frame, 0 bytes spill stores, "
-                                                  "0 bytes spill loads"),
-                          f"K2 uses local memory: {line.strip()}")
 
-    # 3a. K1 vs plain version at the Heston path's shapes
-    params32 = mt.params_from_numpy(
+def heston_params(device):
+    return mt.params_from_numpy(
         [MODEL_KW[k] for k in ("spot", "sigma", "rate", "rho", "kappa", "theta", "v0")],
         device=device, dtype=torch.float32)
+
+
+def north_star_kernel_args(device):
+    """(blocks, chol, float32 params, dense timeline) of the north star's K2
+    launches."""
+    ns = north_star(NS_PATHS, False)
+    dense, _ = dense_timeline(0.0, ns.simulation_timeline, 1)
+    return (ns.model.kernel_blocks(), np.linalg.cholesky(ns.model.static_joint_correlation()),
+            ns.model.initial_params(device=device, dtype=torch.float32), dense)
+
+
+def warm_walls(make, runs: int):
+    """Warm walls of ``runs`` calls of a fresh controller's run_simulation."""
+    c = make()
+    c.run_simulation()
+    walls = [wall_seconds(c.run_simulation) for _ in range(runs)]
+    del c
+    torch.cuda.empty_cache()
+    return walls
+
+
+def host_profile(label, run, top: int = 25, focus: str = "ops/hybrid_paths"):
+    """The host's time in one warm run by Python function (cProfile, which
+    slows the run): the ``top`` functions by their own time, then every
+    function of the files matching ``focus`` by cumulative time."""
+    import cProfile
+    import io
+    import pstats
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    text = io.StringIO()
+    stats = pstats.Stats(prof, stream=text)
+    stats.sort_stats("tottime").print_stats(top)
+    stats.sort_stats("cumulative").print_stats(focus)
+    print(f"[host profile {label}]\n{text.getvalue()}")
+
+
+def split_main():
+    """``--split-only``: for the tree this file sits in, K1's and K2's call,
+    launch-only and wrapper times at the main paths' shapes (K1 on the Heston
+    book, K2 on the north star and on the BS-multi book), the warm walls of
+    the three books forward and differentiated, and the north-star forward
+    run's host time by function and its device busy share, then one JSON
+    line.  A
+    copy of this file run from another checkout's root measures that tree
+    the same way, so one call can run two trees in turns."""
+    device, _ = card()
+    out = {}
+    p32 = heston_params(device)
+    out["K1"] = call_split("K1 heston_qe_paths, Heston book", k1_module, lambda: heston_qe_paths(
+        p32, MATURITIES, NUM_PATHS, NUM_STEPS, seed=SEED, phase=PHASE))
+    blocks, chol, params, dense = north_star_kernel_args(device)
+    out["K2 north star"] = call_split("K2 hybrid_paths, north star", k2_module, lambda: hybrid_paths(
+        blocks, chol, params, dense, NS_PATHS, 1, seed=SEED, phase=PHASE))
+    euro = euro_book(EURO_OPTIONS)[0]
+    m = euro.model
+    e_blocks, e_chol = [m.kernel_block(euro.simulation_scheme)], np.linalg.cholesky(
+        m.kernel_correlation())
+    e_params, e_tl = m.initial_params(device=device, dtype=torch.float32), euro.simulation_timeline
+    del euro
+    out["K2 bs_multi"] = call_split("K2 hybrid_paths, BS-multi book", k2_module, lambda: hybrid_paths(
+        e_blocks, e_chol, e_params, e_tl, NUM_PATHS, 1, seed=SEED, phase=PHASE))
+    ns_fwd = north_star(NS_PATHS, False)
+    walls = {
+        "heston forward": warm_walls(lambda: controller(False)[0], 3),
+        "heston differentiated": warm_walls(lambda: controller(True)[0], 3),
+        "north star forward": warm_walls(lambda: ns_fwd, 8),
+        "north star differentiated": warm_walls(lambda: north_star(NS_PATHS, True), 2),
+        "bs-multi forward": warm_walls(lambda: euro_book(EURO_OPTIONS)[0], 3),
+        "bs-multi differentiated": warm_walls(lambda: euro_book(EURO_DIFF_OPTIONS, True)[0], 3),
+    }
+    for name, w in walls.items():
+        print(f"[wall] {name}: {', '.join(f'{x:.4f}' for x in w)} s")
+    host_profile("north star forward", ns_fwd.run_simulation)
+    profile_run("north star forward", ns_fwd.run_simulation)  # last: it slows what follows
+    print(json.dumps({"split": out, "walls": walls}))
+
+
+def main():
+    # 1. device
+    device, smi = card()
+    t_start = time.perf_counter()
+
+    # 2. build K1 and K2 for every block tuple this script launches,
+    # concurrently; no kernel may spill, and none may keep more on its
+    # stack than sincosf's reduction array
+    builds = cuda_build.load_libraries(
+        [("heston_qe", ())] + [("hybrid_paths", k2_module.role_flags(b)) for b in k2_block_tuples()])
+    for (name, extra), built in builds.items():
+        how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
+        print(f"[build] {name} {' '.join(extra)}: {how} -> {built.path.name}")
+        for kernel, frame in ptxas_frames(built.log).items():
+            print(f"  {kernel}: {frame}")
+        local_memory_gate(name, built)
+    issue = IssueSlots(float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]))
+
+    # 3a. K1 vs plain version at the Heston path's shapes
+    params32 = heston_params(device)
     dense, _ = dense_timeline(0.0, MATURITIES, NUM_STEPS)
     print(f"[kernel] heston_qe_paths at {NUM_PATHS} paths x {len(MATURITIES)} points x {NUM_STEPS} substeps")
     k1_errs = [
@@ -982,39 +1446,46 @@ def main():
     run_k1_plain = lambda: heston_qe_paths_reference(params32, MATURITIES, NUM_PATHS, NUM_STEPS,
                                                      seed=SEED, phase=PHASE)
     k1_plain_ms = median_ms(run_k1_plain)
-    k1_ms = median_ms(run_k1)
     k1_substeps = NUM_PATHS * live_substeps(MATURITIES, NUM_STEPS)
     k1_bound = bound(len(MATURITIES) * NUM_PATHS * 2 * 4, k1_substeps * K1_OPS_PER_SUBSTEP)
+    k1_issue = issue.slot_ms("K1 heston_qe_paths", builds["heston_qe", ()],
+                             "heston_qe_kernelILb0ELb0E", k1_substeps)
+    k1_ms, k1_launch_ms, k1_wrapper_ms = call_split("K1 heston_qe_paths", k1_module, run_k1,
+                                                    k1_bound[0], k1_issue)
     print(f"  kernel {k1_ms:.3f} ms ({k1_substeps / k1_ms * 1e3:.3e} path-steps/s), "
           f"plain {k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
           f"({k1_bound[0] / k1_ms:.1%} of it reached)")
 
-    # 3b. K2 vs plain version at the north-star shapes (both phases)
-    ns = north_star(NS_PATHS, False)
-    ns_model = ns.model
-    ns_dense, _ = dense_timeline(0.0, ns.simulation_timeline, 1)
-    blocks = ns_model.kernel_blocks()
-    chol = np.linalg.cholesky(ns_model.static_joint_correlation())
-    ns_params32 = ns_model.initial_params(device=device, dtype=torch.float32)
+    # 3b. K2 and its table prologue vs their plain versions at the north-star
+    # shapes (both phases), on ragged and misaligned launches, and K1 and K2
+    # with host syncs forbidden
+    blocks, chol, ns_params32, ns_dense = north_star_kernel_args(device)
     print(f"[kernel] hybrid_paths at {NS_PATHS} paths x {len(ns_dense)} points "
           f"(dense timeline), blocks {[b.kind for b in blocks]}")
     presim_err, _ = compare_hybrid("north star presim", blocks, chol, ns_params32, ns_dense, 1,
                                    mt.rng.PHASE_PRESIM, NS_PATHS)
     ns_row = k2_rung("vasicek, bs, cirpp euler", blocks, chol, ns_params32, ns_dense, 1,
-                     NS_PATHS)
+                     NS_PATHS, issue=issue)
     ns_row["max_abs_err"] = max(ns_row["max_abs_err"], presim_err)
-    del ns
+    table_json = table_row(blocks, ns_params32, ns_dense, 1)
+    ragged_rungs(device)
+    sync_free(params32, (blocks, chol, ns_params32, ns_dense, NS_PATHS, 1))
 
     # 3c. the K2 ladder: every (block, scheme) at its book's shapes
-    rows = k2_ladder(device)
+    rows = k2_ladder(device, issue)
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
-    # 4. - 7. the main paths and routes: each one's counts from 0 just before it
+    # 4. - 7. the main paths and routes: each one's counts from 0 just before
+    # it; every K2 launch comes with one launch of its table prologue
     rows["bs_multi exact"]["launches"], euro_runs = euro_main_path()
+    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
     torch.cuda.empty_cache()
     k1_launches = heston_main_path(device)
     torch.cuda.empty_cache()
     ns_row["launches"] = north_star_main_path()
+    table_json["launches"] = k2_module.hybrid_table.launches
+    check(table_json["launches"] == hybrid_paths.launches, "prologue launches differ")
     torch.cuda.empty_cache()
     print(f"[time] main paths done after {time.perf_counter() - t_start:.1f} s")
     basket_phase()
@@ -1024,7 +1495,8 @@ def main():
     rows["hw euler"]["launches"] = hw_phase(mt.SimulationScheme.MILSTEIN)
     rows["s2f exact"]["launches"] = s2f_phase(mt.SimulationScheme.ANALYTICAL)
     rows["s2f euler"]["launches"] = s2f_phase(mt.SimulationScheme.EULER)
-    k2_rows = [ns_row, *rows.values()]
+    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
+    k2_rows = [ns_row, *rows.values(), table_json]
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
           "a kernel of the main paths never launched")
 
@@ -1033,7 +1505,7 @@ def main():
         profile_run(label, run)
     print(f"[time] all phases done after {time.perf_counter() - t_start:.1f} s")
 
-    # 8. result lines
+    # 9. result lines
     print(smi)
     k1_row = {
         "name": "heston_qe_paths",
@@ -1047,6 +1519,8 @@ def main():
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
+        "launch_ms": k1_launch_ms,
+        "wrapper_ms": k1_wrapper_ms,
     }
     print(json.dumps({"kernels": [k1_row] + k2_rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1055,4 +1529,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    split_main() if "--split-only" in sys.argv[1:] else main()

@@ -11,16 +11,21 @@
 //     (log S, v) per path per point, stored path-minor into the public
 //     [T, N, 2] layout, so a warp writes 256 contiguous bytes.  The
 //     noise-emitting variant also writes z [T, N, 2] and u [T, N].
-//   * What bounds it: arithmetic.  Per substep one Philox4x32-10 call, a
-//     Box-Muller pair (logf, sqrtf, sinf, cosf), the QE update (IEEE
-//     divisions, sqrtf, logf).  The scalars that depend only on (params, dt)
-//     are computed once per timeline point, as _heston_qe_substep hoists
-//     them; per-point dts come in a small table passed by value (the kernel
-//     parameter space is constant memory).
+//   * What bounds it: the SMs' issue slots.  Per substep one Philox4x32-10
+//     call, a Box-Muller pair (logf, sqrtf, one sincosf), the QE update
+//     (IEEE divisions, sqrtf, logf): 414 issued instructions (read from the
+//     SASS by chip_smoke.py), and at the Heston book's shapes an H100
+//     (700 W) launch takes about that issue-slot time.  The scalars that
+//     depend only on (params, dt) are computed once per timeline point, as
+//     _heston_qe_substep hoists them; per-point dts come in a small table
+//     passed by value (the kernel parameter space is constant memory).
+//   * No host sync: the seven parameters are a device f32 vector [spot,
+//     sigma, rate, rho, kappa, theta, v0] (the wrapper's torch.stack, rounded
+//     once from the caller's dtype), read once per thread.
 //   * Draws: Philox4x32-10, key (seed, phase), counter
 //     (path, point * num_steps + k, 0, 0).  Words 0 and 1 give
 //     the Box-Muller pair (z_s, z_v), word 2 the QE uniform, each mapped as
-//     ((w >> 8) + 0.5) / 2^24 and clamped below 1.
+//     ((w >> 8) + 0.5) / 2^24 and clamped below 1 (random.cuh).
 //   * Built with -fmad=false and without fast math: every expression rounds
 //     like the separate torch ops of the plain version.
 //   * Variants are template flags: kSmooth (fuzzy branch widths 0.3 / 0.5)
@@ -32,59 +37,36 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "random.cuh"
+
 namespace {
 
 constexpr int kMaxPoints = 512;
 constexpr int kThreads = 256;
 constexpr float kEps = (float)1e-12;
 constexpr float kClipP = (float)(1.0 - 1e-6);
-constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
-constexpr float kUMax = 0x1.fffffep-1f;  // largest float below 1
 constexpr float kInvSixTenths = (float)(1.0 / 0.6);
 
 struct PointTable {
   float dt[kMaxPoints];
 };
 
-struct HestonParams {
-  float spot, sigma, rate, rho, kappa, theta, v0;
-};
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float uniform_from_word(uint32_t w) {
-  const float u = __uint2float_rn(w >> 8) * 0x1p-24f + 0x1p-25f;
-  return fminf(u, kUMax);
-}
-
+// The emitting instances take four blocks per SM (at most 64 registers):
+// left to itself ptxas gave them 48 registers and spilled.
 template <bool kSmooth, bool kEmit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kEmit ? 4 : 0)
 heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
                  float* __restrict__ us, const PointTable table, int num_points,
-                 int num_steps, uint32_t num_paths, const HestonParams prm,
+                 int num_steps, uint32_t num_paths, const float* __restrict__ prm,
                  uint32_t seed, uint32_t phase) {
   const uint32_t path = blockIdx.x * blockDim.x + threadIdx.x;
   if (path >= num_paths) return;
   const uint2 key = make_uint2(seed, phase);
 
-  const float sigma = prm.sigma, rate = prm.rate, rho = prm.rho;
-  const float kappa = prm.kappa, theta = prm.theta;
-  float log_s = logf(prm.spot);
-  float v = prm.v0;
+  const float sigma = __ldg(prm + 1), rate = __ldg(prm + 2), rho = __ldg(prm + 3);
+  const float kappa = __ldg(prm + 4), theta = __ldg(prm + 5);
+  float log_s = logf(__ldg(prm));
+  float v = __ldg(prm + 6);
 
   for (int point = 0; point < num_points; ++point) {
     const float dt = table.dt[point];
@@ -105,15 +87,12 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
 
       float z_s = 0.0f, z_v = 0.0f, u = 0.0f;
       for (int k = 0; k < num_steps; ++k) {
-        const uint4 w = philox4x32_10(
+        const uint4 w = mcre::philox4x32_10(
             make_uint4(path, (uint32_t)(point * num_steps + k), 0u, 0u), key);
-        const float u1 = uniform_from_word(w.x);
-        const float u2 = uniform_from_word(w.y);
-        u = uniform_from_word(w.z);
-        const float r = sqrtf(-2.0f * logf(u1));
-        const float ang = u2 * kTwoPi;
-        z_s = r * cosf(ang);
-        z_v = r * sinf(ang);
+        const float2 zz = mcre::box_muller(w.x, w.y);
+        u = mcre::uniform_from_word(w.z);
+        z_s = zz.x;
+        z_v = zz.y;
 
         // ---- per-path QE update ----
         const float m = c_m + v * ekt;
@@ -161,7 +140,7 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
 template <bool kSmooth, bool kEmit>
 void launch(float2* states, float2* zs, float* us, const PointTable& table,
             int num_points, int num_steps, uint32_t num_paths,
-            const HestonParams& prm, uint32_t seed, uint32_t phase,
+            const float* prm, uint32_t seed, uint32_t phase,
             cudaStream_t stream) {
   const unsigned blocks = (num_paths + kThreads - 1) / kThreads;
   heston_qe_kernel<kSmooth, kEmit><<<blocks, kThreads, 0, stream>>>(
@@ -171,19 +150,18 @@ void launch(float2* states, float2* zs, float* us, const PointTable& table,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  Pointers are device
-// pointers; z and u may be null unless emit_noise is set.  dts is a host
-// array of num_points floats (the per-substep dt of each point).
+// Returns the cudaError_t of the launch (0 on success).  states, z, u and
+// params are device pointers; z and u may be null unless emit_noise is set;
+// params is f32 [7] (spot, sigma, rate, rho, kappa, theta, v0).  dts is a
+// host array of num_points floats (the per-substep dt of each point).
 extern "C" int mcre_heston_qe_paths(void* states, void* z, void* u,
                                     const void* dts, int num_points,
                                     int num_steps, uint32_t num_paths,
-                                    float spot, float sigma, float rate,
-                                    float rho, float kappa, float theta,
-                                    float v0, uint32_t seed, uint32_t phase,
-                                    int smoothing, int emit_noise,
-                                    void* stream) {
+                                    const void* params, uint32_t seed,
+                                    uint32_t phase, int smoothing,
+                                    int emit_noise, void* stream) {
   if (num_points < 0 || num_points > kMaxPoints || num_steps < 1 ||
-      num_paths == 0 || states == nullptr ||
+      num_paths == 0 || states == nullptr || params == nullptr ||
       (emit_noise && (z == nullptr || u == nullptr || num_steps != 1))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -191,7 +169,7 @@ extern "C" int mcre_heston_qe_paths(void* states, void* z, void* u,
   PointTable table;
   memset(&table, 0, sizeof(table));
   memcpy(table.dt, dts, sizeof(float) * (size_t)num_points);
-  const HestonParams prm{spot, sigma, rate, rho, kappa, theta, v0};
+  const auto* prm = static_cast<const float*>(params);
   auto* s = static_cast<float2*>(states);
   auto* zz = static_cast<float2*>(z);
   auto* uu = static_cast<float*>(u);

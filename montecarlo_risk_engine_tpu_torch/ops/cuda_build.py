@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``_build/`` (named by a hash of the source and flags, so an edited source is
-rebuilt) and loaded with ``ctypes``.  Nothing is compiled when a module is
+``_build/`` (named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source is rebuilt) and loaded with ``ctypes``.
+A build may add flags (``extra``): K2 is built once per block tuple, its
+slot roles given as ``-D`` constants.  Nothing is compiled when a module is
 imported: machines without ``nvcc`` import the package and run the plain
 versions on CPU tensors.
 """
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -41,7 +43,7 @@ class BuiltLibrary:
         self.log = log  # nvcc's output (ptxas register/spill report)
 
 
-_loaded: Dict[str, BuiltLibrary] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], BuiltLibrary] = {}
 
 
 def _find_nvcc() -> str:
@@ -58,39 +60,49 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_libraries(names: Iterable[str]) -> Dict[str, BuiltLibrary]:
-    """Compile (where needed) and load ``csrc/<name>.cu`` for every name;
-    the missing builds run as concurrent nvcc processes."""
-    names = list(dict.fromkeys(names))
+Build = Tuple[str, Tuple[str, ...]]  # (source name, extra nvcc flags)
+
+
+def load_libraries(builds: Iterable[Build]) -> Dict[Build, BuiltLibrary]:
+    """Compile (where needed) and load ``csrc/<name>.cu`` with
+    :data:`NVCC_FLAGS` and its extra flags for every (name, extra); the
+    missing builds run as concurrent nvcc processes.  nvcc's output is kept
+    beside each library, so a reused build still has its ptxas report."""
+    builds = list(dict.fromkeys((name, tuple(extra)) for name, extra in builds))
     pending = {}
-    for name in names:
-        if name in _loaded:
+    for name, extra in builds:
+        if (name, extra) in _loaded:
             continue
+        flags = NVCC_FLAGS + extra
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
-            _loaded[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, None, "")
+            log = out.with_suffix(".log")
+            _loaded[name, extra] = BuiltLibrary(ctypes.CDLL(str(out)), out, None,
+                                                log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_find_nvcc(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        pending[name] = (proc, src, tmp, out, time.perf_counter())
+        pending[name, extra] = (proc, src, tmp, out, time.perf_counter())
     failures = []
-    for name, (proc, src, tmp, out, t0) in pending.items():
+    for key, (proc, src, tmp, out, t0) in pending.items():
         log, _ = proc.communicate()
         build_seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {src.name}:\n{log}")
+            failures.append(f"nvcc failed for {src.name} {' '.join(key[1])}:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        _loaded[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
+        _loaded[key] = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return {name: _loaded[name] for name in names}
+    return {key: _loaded[key] for key in builds}
 
 
-def load_library(name: str) -> BuiltLibrary:
-    """Compile (if needed) and load ``csrc/<name>.cu``."""
-    return load_libraries([name])[name]
+def load_library(name: str, extra: Tuple[str, ...] = ()) -> BuiltLibrary:
+    """Compile (if needed) and load ``csrc/<name>.cu`` with ``extra`` flags."""
+    return load_libraries([(name, extra)])[name, tuple(extra)]

@@ -11,8 +11,8 @@ Kernel (``csrc/heston_qe.cu``, CUDA C++ for sm_90a, built by ops/cuda_build):
     and substep — what the TPU kernel kept in VMEM.  Its only device-memory
     traffic is the emission: 8 bytes per path per point (20 with noise).
   * Bound by arithmetic, not bytes: each substep runs one Philox4x32-10 call
-    (10 rounds of two 32x32 multiplies), a Box-Muller pair (log, sqrt,
-    sin, cos), two or three square roots, a log and six IEEE divisions, in
+    (10 rounds of two 32x32 multiplies), a Box-Muller pair (log, sqrt, one
+    sincos), two or three square roots, a log and six IEEE divisions, in
     float32.  At 1M paths x 40 substeps the emission is 80 MB (~25 us at
     3.35 TB/s), far below the arithmetic time, so the design keeps the
     per-substep work minimal: the per-(params, dt) scalars are computed
@@ -22,6 +22,9 @@ Kernel (``csrc/heston_qe.cu``, CUDA C++ for sm_90a, built by ops/cuda_build):
   * Draws: Philox4x32-10 keyed (seed, phase) at counter (path, point *
     num_steps + k, 0, 0), the stream of ``rng.substep_draws``.  A sharded
     run will pass a global path offset (not needed on one card yet).
+  * No host sync: the parameters go to the kernel as a device float32
+    vector (:func:`kernel_inputs`), the per-point dts as a host array passed
+    by value; nothing is read back before the launch.
   * Built without FMA contraction and without fast math, so on the card it
     rounds op for op like :func:`heston_qe_paths_reference`.
 
@@ -164,11 +167,13 @@ def heston_qe_paths_reference(
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.mcre_heston_qe_paths
+    if fn.argtypes is not None:  # bound at an earlier call
+        return fn
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # states, z, u
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # dts, points, steps
         ctypes.c_uint32,                                     # num_paths
-        *([ctypes.c_float] * 7),                             # params
+        ctypes.c_void_p,                                     # params [7] f32
         ctypes.c_uint32, ctypes.c_uint32,                    # seed, phase
         ctypes.c_int, ctypes.c_int,                          # smoothing, emit
         ctypes.c_void_p,                                     # stream
@@ -177,28 +182,37 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
+def kernel_inputs(params, timeline: Sequence[float], num_steps: int,
+                  calibration_date: float = 0.0):
+    """(parameters, dts) as the kernel takes them: the parameters a float32
+    vector [7] on their own device, rounded once from their dtype on that
+    device (no host read), and the per-substep dt of each point as a host
+    float32 array."""
+    dts = _point_dts(timeline, calibration_date, num_steps)
+    return (torch.stack(params).detach().to(torch.float32),
+            (ctypes.c_float * len(dts))(*dts))
+
+
 def _launch(params, timeline, num_paths, num_steps, seed, phase, calibration_date,
             smoothing, emit_noise):
     built = cuda_build.load_library("heston_qe")
     fn = _bind(built.lib)
     device = params[0].device
-    dts = _point_dts(timeline, calibration_date, num_steps)
-    n_pts = len(dts)
+    n_pts = len(timeline)
     states = torch.empty((n_pts, num_paths, 2), dtype=torch.float32, device=device)
     z = u = None
     if emit_noise:
         z = torch.empty((n_pts, num_paths, 2), dtype=torch.float32, device=device)
         u = torch.empty((n_pts, num_paths), dtype=torch.float32, device=device)
     if n_pts:
-        table = (ctypes.c_float * n_pts)(*dts)
-        values = [float(p) for p in params]
+        prm, table = kernel_inputs(params, timeline, num_steps, calibration_date)
         with torch.cuda.device(device):
             rc = fn(
                 states.data_ptr(),
                 None if z is None else z.data_ptr(),
                 None if u is None else u.data_ptr(),
                 ctypes.cast(table, ctypes.c_void_p), n_pts, num_steps, num_paths,
-                *values,
+                prm.data_ptr(),
                 seed & 0xFFFFFFFF, phase & 0xFFFFFFFF,
                 int(smoothing), int(emit_noise),
                 torch.cuda.current_stream(device).cuda_stream,

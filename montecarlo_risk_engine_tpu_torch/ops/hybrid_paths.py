@@ -22,15 +22,25 @@ w = L z, and each block takes its step (pallas_hybrid.py:286-416):
     exact x' = x decay + std_x w, y' = y + mu dt + std_y (rho w + rho_c w2),
     Euler with sigma sqrt(dt) in place of the exact std; log S' = log F0(t1 + dt) + x' + y'
 
-Kernel (``csrc/hybrid_paths.cu``, CUDA C++ for sm_90a, built by
-ops/cuda_build): one thread per path, the state in registers as one *slot*
-per noise factor holding at most two state columns (:func:`kernel_slots`),
-slot descriptors read at run time, parameters as a device vector, the
-initial state as a device vector, and every per-substep constant (dt,
-sqrt(dt), psi, decay, scale, alpha, lambda_mkt, log F0, rho_c, the s2f
-stds) in a device table built here in torch from the device parameters:
-no host sync before the launch.  Bound by the bytes of its emission; see
-the source's note.
+Kernels (``csrc/hybrid_paths.cu``, CUDA C++ for sm_90a, built by
+ops/cuda_build), launched back to back with no host sync:
+
+  * the table prologue (:func:`hybrid_table`): one thread per substep
+    computes every parameter-dependent constant (psi, decay, scale, alpha,
+    rho_c, the s2f stds) in float64 from the device parameters and the
+    static host columns (dt, sqrt(dt), t1, lambda_mkt, f(0, t), log F0),
+    rounds it once to float32, and writes the float32 parameters and the
+    initial state.  The static half (:func:`table_inputs`) is built once
+    per block list, timeline, substep count, calibration date and device
+    and kept in a small cache, so a call makes one ``torch.stack`` of the
+    parameters and two launches;
+  * the paths: one thread per path, the state in registers as one *slot*
+    per noise factor holding at most two state columns
+    (:func:`kernel_slots`), each point's [256 x D] tile staged in shared
+    memory and stored contiguously (a TMA bulk copy where the tiles are
+    16-byte aligned).  One library per block tuple: the slot roles are
+    compile-time constants (:func:`role_flags`), built at the tuple's first
+    use.  See the source's note.
 
 :func:`hybrid_paths` dispatches on the device of ``params``: CUDA tensors
 launch the kernel (or raise), CPU tensors run
@@ -41,6 +51,7 @@ arithmetic op for op from the same table.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Sequence, Tuple
 
@@ -57,6 +68,10 @@ MAX_SIM = 8
 # Slot roles (csrc/hybrid_paths.cu enum Role).
 GBM_EXACT, GBM_EULER, VAS_EXACT, VAS_EULER, CIRPP, CIRPP_DET = 0, 1, 2, 3, 4, 5
 HW_EXACT, HW_EULER, S2F_X_EXACT, S2F_X_EULER, S2F_Y_EXACT, S2F_Y_EULER = 6, 7, 8, 9, 10, 11
+
+# Table column groups of the prologue (csrc/hybrid_paths.cu enum TableKind).
+TAB_VAS_EXACT, TAB_CIRPP, TAB_CIRPP_DET, TAB_HW_EULER, TAB_HW_EXACT = 0, 1, 2, 3, 4
+TAB_S2F_EULER, TAB_S2F_EXACT = 5, 6
 
 # kind -> number of parameters (None: 2 n_state + 1 for bs_multi).  Every
 # kind takes the schemes "exact" and "euler"; cirpp and cirpp_det have one
@@ -205,6 +220,55 @@ def _substeps(timeline: Sequence[float], num_steps: int, calibration_date: float
     return rows
 
 
+def _host_columns(blocks: Sequence[KernelBlock], timeline: Sequence[float], num_steps: int,
+                  calibration_date: float) -> np.ndarray:
+    """[T * num_steps, H] float64: dt, sqrt(dt), t1, then each block's host
+    curve values in block order (cirpp: lambda_mkt(t1); cirpp_det:
+    lambda_mkt(t1), lambda_mkt(t1 + dt); hw: f(0, t1), f(0, t1 + dt); s2f:
+    log F0(t1 + dt))."""
+    rows = _substeps(timeline, num_steps, calibration_date)
+    t1 = np.asarray([r[0] for r in rows], dtype=np.float64)
+    dt = np.asarray([r[1] for r in rows], dtype=np.float64)
+    host = [dt, np.sqrt(dt), t1]
+    for b in blocks:
+        if b.kind == "cirpp":
+            host.append(np.asarray([b.lambda_market(t) for t in t1]))
+        elif b.kind == "cirpp_det":
+            host.append(np.asarray([b.lambda_market(t) for t in t1]))
+            host.append(np.asarray([b.lambda_market(t + h) for t, h in zip(t1, dt)]))
+        elif b.kind == "hw":
+            host.append(np.asarray([b.hw_fwd0(t) for t in t1]))
+            host.append(np.asarray([b.hw_fwd0(t + h) for t, h in zip(t1, dt)]))
+        elif b.kind == "s2f":
+            host.append(np.asarray([b.s2f_logf0(t + h) for t, h in zip(t1, dt)]))
+    return np.stack(host, axis=1).reshape(len(rows), len(host))
+
+
+def _table_groups(blocks: Sequence[KernelBlock]):
+    """Per block with table columns: (TAB_* kind, param_base, first host
+    column, first table column), the layout of :func:`substep_table`."""
+    groups, hc, tc = [], 3, 2
+    for b in blocks:
+        exact = b.scheme == "exact"
+        kind = {"vasicek": TAB_VAS_EXACT if exact else None, "cirpp": TAB_CIRPP,
+                "cirpp_det": TAB_CIRPP_DET, "hw": TAB_HW_EXACT if exact else TAB_HW_EULER,
+                "s2f": TAB_S2F_EXACT if exact else TAB_S2F_EULER}.get(b.kind)
+        if kind is not None:
+            groups.append((kind, b.param_base, hc, tc))
+        hc += {"cirpp": 1, "cirpp_det": 2, "hw": 2, "s2f": 1}.get(b.kind, 0)
+        tc += _TABLE_COLS.get(b.kind, (0, 0))[exact]
+    return groups
+
+
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card through pinned memory, with
+    no sync."""
+    host = torch.from_numpy(array)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
                   num_steps: int, calibration_date: float = 0.0) -> torch.Tensor:
     """[T * num_steps, table_width] float32 on the device of ``params``: per
@@ -221,79 +285,88 @@ def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[floa
 
     Host values (dt, the market curves) are float64; the parameter-dependent
     ones are computed in float64 on the device from ``params`` and rounded
-    once, so no parameter crosses to the host."""
+    once, so no parameter crosses to the host.  The plain version of the
+    table prologue of csrc/hybrid_paths.cu."""
     device = params[0].device
-    rows = _substeps(timeline, num_steps, calibration_date)
-    t1 = np.asarray([r[0] for r in rows], dtype=np.float64)
-    dt = np.asarray([r[1] for r in rows], dtype=np.float64)
-    host = [dt, np.sqrt(dt), t1]
-    for b in blocks:  # host curve values of every block, in block order
-        if b.kind == "cirpp":
-            host.append(np.asarray([b.lambda_market(t) for t in t1]))
-        elif b.kind == "cirpp_det":
-            host.append(np.asarray([b.lambda_market(t) for t in t1]))
-            host.append(np.asarray([b.lambda_market(t + h) for t, h in zip(t1, dt)]))
-        elif b.kind == "hw":
-            host.append(np.asarray([b.hw_fwd0(t) for t in t1]))
-            host.append(np.asarray([b.hw_fwd0(t + h) for t, h in zip(t1, dt)]))
-        elif b.kind == "s2f":
-            host.append(np.asarray([b.s2f_logf0(t + h) for t, h in zip(t1, dt)]))
-    host_t = torch.from_numpy(np.stack(host, axis=1).reshape(len(rows), len(host)))
-    if device.type == "cuda":
-        host_t = host_t.pin_memory()
-    dev = host_t.to(device, non_blocking=True)
-    d_t, t1_t = dev[:, 0], dev[:, 2]
+    dev = _upload(_host_columns(blocks, timeline, num_steps, calibration_date), device)
+    return table_columns(blocks, dev, params, calibration_date)
+
+
+def table_columns(blocks: Sequence[KernelBlock], host: torch.Tensor, params,
+                  calibration_date: float = 0.0) -> torch.Tensor:
+    """:func:`substep_table` from its host columns (``host``, [rows, H]
+    float64 on the device of ``params``, as :func:`table_inputs` keeps
+    them): the parameter-dependent columns in float64 torch ops, rounded
+    once to float32."""
+    d_t, t1_t = host[:, 0], host[:, 2]
     live = d_t > 0.0
     one = torch.ones_like(d_t)
-    cols = [dev[:, 0], dev[:, 1]]
-    hc = 3  # next host column
+    cols = [host[:, 0], host[:, 1]]
 
-    def p(b, i):
-        return params[b.param_base + i].detach().to(torch.float64)
+    def p(base, i):
+        return params[base + i].detach().to(torch.float64)
 
-    for b in blocks:
-        if b.kind == "vasicek" and b.scheme == "exact":
-            sigma, a = p(b, 1), p(b, 3)
+    for kind, base, hc, _ in _table_groups(blocks):
+        if kind == TAB_VAS_EXACT:
+            sigma, a = p(base, 1), p(base, 3)
             decay = torch.exp(-a * d_t)
             cols += [decay, torch.sqrt((sigma * sigma / (2.0 * a)) * (1.0 - decay * decay))]
-        elif b.kind == "cirpp":
-            kappa, theta, sigma, y0 = (p(b, i) for i in range(4))
+        elif kind == TAB_CIRPP:
+            kappa, theta, sigma, y0 = (p(base, i) for i in range(4))
             h = torch.sqrt(kappa * kappa + 2.0 * sigma * sigma)
             et = torch.exp(h * t1_t)
             den = 2.0 * h + (kappa + h) * (et - 1.0)
             d_term = (2.0 * kappa * theta / (sigma * sigma)) * (0.5 * (kappa + h)
                                                                - h * (kappa + h) * et / den)
             e_term = 4.0 * h * h * et / (den * den)
-            cols.append(dev[:, hc] + d_term - y0 * e_term)
-            hc += 1
-        elif b.kind == "cirpp_det":
-            cols += [dev[:, hc], dev[:, hc + 1]]
-            hc += 2
-        elif b.kind == "hw":
-            sigma, a = p(b, 0), p(b, 1)
+            cols.append(host[:, hc] + d_term - y0 * e_term)
+        elif kind == TAB_CIRPP_DET:
+            cols += [host[:, hc], host[:, hc + 1]]
+        elif kind in (TAB_HW_EULER, TAB_HW_EXACT):
+            sigma, a = p(base, 0), p(base, 1)
             s2a = sigma * sigma / (2.0 * a * a)
             d1 = t1_t - calibration_date
             d2 = d1 + d_t
-            cols += [dev[:, hc] + s2a * (1.0 - torch.exp(-a * d1)) ** 2,
-                     dev[:, hc + 1] + s2a * (1.0 - torch.exp(-a * d2)) ** 2]
-            hc += 2
-            if b.scheme == "exact":
+            cols += [host[:, hc] + s2a * (1.0 - torch.exp(-a * d1)) ** 2,
+                     host[:, hc + 1] + s2a * (1.0 - torch.exp(-a * d2)) ** 2]
+            if kind == TAB_HW_EXACT:
                 decay = torch.exp(-a * d_t)
                 cols += [decay, torch.sqrt((sigma * sigma / (2.0 * a)) * (1.0 - decay * decay))]
-        elif b.kind == "s2f":
-            kappa, sig_s, sig_l, rho = p(b, 1), p(b, 2), p(b, 4), p(b, 5)
-            cols += [dev[:, hc], torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0)) * one]
-            hc += 1
-            if b.scheme == "exact":
+        else:  # s2f
+            kappa, sig_s, sig_l, rho = p(base, 1), p(base, 2), p(base, 4), p(base, 5)
+            cols += [host[:, hc], torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0)) * one]
+            if kind == TAB_S2F_EXACT:
                 near0 = torch.abs(kappa) < 1e-12
                 k_safe = torch.where(near0, torch.ones_like(kappa), kappa)
                 decay = torch.where(near0, one, torch.exp(-kappa * d_t))
                 var_x = torch.where(near0, sig_s * sig_s * d_t,
                                     (sig_s * sig_s / (2.0 * k_safe)) * (1.0 - decay * decay))
-                cols += [decay, torch.sqrt(var_x), sig_l * dev[:, 1]]
+                cols += [decay, torch.sqrt(var_x), sig_l * host[:, 1]]
     table = torch.stack(cols, dim=1)
     table = torch.where(live[:, None], table, torch.zeros_like(table))
     return table.to(torch.float32)
+
+
+def _initial_columns(blocks: Sequence[KernelBlock], calibration_date: float):
+    """Per state column: (parameter index or -1, take its log, host
+    constant), the layout of :func:`initial_state`."""
+    cols = []
+    t0 = float(calibration_date)
+    for b in blocks:
+        base = b.param_base
+        if b.kind in ("bs", "bs_multi"):
+            cols += [(base + d, b.scheme == "exact", 0.0) for d in range(b.n_state)]
+        elif b.kind == "vasicek":
+            cols += [(base, False, 0.0), (-1, False, 0.0)]
+        elif b.kind == "cirpp":
+            cols += [(base + 3, False, 0.0), (-1, False, 0.0)]
+        elif b.kind == "cirpp_det":
+            cols += [(-1, False, b.lambda_market(t0)), (-1, False, 0.0)]
+        elif b.kind == "hw":
+            cols += [(-1, False, b.hw_fwd0(t0)), (-1, False, 0.0)]
+        else:
+            cols += [(-1, False, b.s2f_logf0(t0)), (-1, False, 0.0), (-1, False, 0.0)]
+    return cols
 
 
 def initial_state(blocks: Sequence[KernelBlock], params, calibration_date: float = 0.0):
@@ -304,24 +377,74 @@ def initial_state(blocks: Sequence[KernelBlock], params, calibration_date: float
     [log F0(t0), 0, 0] for s2f."""
     device = params[0].device
     vals: List[torch.Tensor] = []
-    const = lambda v: torch.full((), float(v), dtype=torch.float64, device=device)
-    p = lambda b, i: params[b.param_base + i].detach().to(torch.float64)
-    t0 = float(calibration_date)
-    for b in blocks:
-        if b.kind in ("bs", "bs_multi"):
-            spots = [p(b, d) for d in range(b.n_state)]
-            vals += [torch.log(s) for s in spots] if b.scheme == "exact" else spots
-        elif b.kind == "vasicek":
-            vals += [p(b, 0), const(0.0)]
-        elif b.kind == "cirpp":
-            vals += [p(b, 3), const(0.0)]
-        elif b.kind == "cirpp_det":
-            vals += [const(b.lambda_market(t0)), const(0.0)]
-        elif b.kind == "hw":
-            vals += [const(b.hw_fwd0(t0)), const(0.0)]
+    for src, log, const in _initial_columns(blocks, calibration_date):
+        if src < 0:
+            vals.append(torch.full((), float(const), dtype=torch.float64, device=device))
         else:
-            vals += [const(b.s2f_logf0(t0)), const(0.0), const(0.0)]
+            p = params[src].detach().to(torch.float64)
+            vals.append(torch.log(p) if log else p)
     return torch.stack(vals).to(torch.float32)
+
+
+class TableInputs(NamedTuple):
+    """The static half of K2's inputs for one key: the host columns on the
+    device and the prologue's descriptors as ctypes arrays."""
+
+    rows: int
+    table_width: int
+    state_dim: int
+    host: torch.Tensor  # [rows, H] float64 (:func:`_host_columns`)
+    groups: tuple       # (kind, pbase, hcol, tcol) int arrays and their count
+    init: tuple         # (src, log) int arrays, the constants as a double array
+
+
+@functools.lru_cache(maxsize=32)
+def table_inputs(blocks: Tuple[KernelBlock, ...], timeline: Tuple[float, ...], num_steps: int,
+                 calibration_date: float, device: torch.device) -> TableInputs:
+    """The cached static half of the table prologue's inputs: computed once
+    per (blocks, timeline, num_steps, calibration_date, device), none of
+    which is a parameter."""
+    host = _host_columns(blocks, timeline, num_steps, calibration_date)
+    _, state_dim, table_width = kernel_slots(blocks)
+    groups = _table_groups(blocks)
+    ints = lambda xs: (ctypes.c_int * max(len(xs), 1))(*xs)
+    init = _initial_columns(blocks, calibration_date)
+    return TableInputs(
+        host.shape[0], table_width, state_dim, _upload(host, device),
+        (len(groups), *(ints([g[i] for g in groups]) for i in range(4))),
+        (ints([c[0] for c in init]), ints([int(c[1]) for c in init]),
+         (ctypes.c_double * state_dim)(*(float(c[2]) for c in init))))
+
+
+@functools.lru_cache(maxsize=64)
+def _role_flags(blocks: Tuple[KernelBlock, ...]) -> Tuple[str, ...]:
+    roles = [sl.role for sl in kernel_slots(blocks)[0]]
+    return (f"-DMCRE_NS={len(roles)}",
+            f"-DMCRE_ROLES={sum(r << (4 * s) for s, r in enumerate(roles)):#x}")
+
+
+def role_flags(blocks: Sequence[KernelBlock]) -> Tuple[str, ...]:
+    """The nvcc flags of K2's build for a block tuple: its slot count and
+    each slot's role (4 bits per slot), compile-time constants of
+    csrc/hybrid_paths.cu."""
+    return _role_flags(tuple(blocks))
+
+
+def _library(blocks: Sequence[KernelBlock]) -> ctypes.CDLL:
+    """K2's build for this block tuple (compiled at its first use)."""
+    return cuda_build.load_library("hybrid_paths", role_flags(blocks)).lib
+
+
+@functools.lru_cache(maxsize=32)
+def slot_inputs(blocks: Tuple[KernelBlock, ...], chol: bytes):
+    """The main kernel's slot descriptors (role, pa, pb, tcol, oa, ob int
+    arrays) and its float32 Cholesky factor (``chol``: float64 bytes of the
+    [sim_dim, sim_dim] factor), as ctypes arrays."""
+    slots, _, _ = kernel_slots(blocks)
+    ns = len(slots)
+    c32 = np.frombuffer(chol, dtype=np.float64).astype(np.float32)
+    return (ns, *((ctypes.c_int * ns)(*(sl[i] for sl in slots)) for i in range(6)),
+            (ctypes.c_float * c32.size)(*c32.tolist()))
 
 
 def _chol32(chol) -> np.ndarray:
@@ -330,14 +453,13 @@ def _chol32(chol) -> np.ndarray:
 
 def correlate(chol, z: torch.Tensor) -> List[torch.Tensor]:
     """w = L z as the kernel forms it: per row, the products with the
-    non-zero entries of ``chol`` (a host array) summed left to right."""
+    entries of ``chol`` (a host array) on and below the diagonal summed left
+    to right."""
     w = []
     for i in range(z.shape[-1]):
-        acc = None
-        for e in range(i + 1):
-            c = float(chol[i, e])
-            if c != 0.0:
-                acc = c * z[:, e] if acc is None else acc + c * z[:, e]
+        acc = float(chol[i, 0]) * z[:, 0]
+        for e in range(1, i + 1):
+            acc = acc + float(chol[i, e]) * z[:, e]
         w.append(acc)
     return w
 
@@ -453,6 +575,8 @@ def _check_args(blocks, chol, params, num_paths, num_steps):
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.mcre_hybrid_paths
+    if fn.argtypes is not None:  # bound at an earlier call
+        return fn
     int_p = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, params, table
@@ -468,27 +592,91 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
+def _bind_table(lib: ctypes.CDLL):
+    fn = lib.mcre_hybrid_table
+    if fn.argtypes is not None:
+        return fn
+    int_p = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # workspace, host, params
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,              # rows, host_width, table_width
+        ctypes.c_int, ctypes.c_int,                            # num_params, state_dim
+        ctypes.c_int, int_p, int_p, int_p, int_p,              # groups: kind, pbase, hcol, tcol
+        int_p, int_p, ctypes.POINTER(ctypes.c_double),         # init: src, log, const
+        ctypes.c_double, ctypes.c_void_p,                      # calibration date, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_inputs(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
+                  num_steps: int, calibration_date: float = 0.0):
+    """What the table prologue takes: (the cached :func:`table_inputs`, the
+    parameters as a float64 vector on their own device).  No parameter is
+    read to the host."""
+    tab = table_inputs(tuple(blocks), tuple(float(t) for t in timeline), num_steps,
+                       float(calibration_date), params[0].device)
+    return tab, torch.stack(params).detach().to(torch.float64)
+
+
+def _slots_of(blocks: Sequence[KernelBlock], chol):
+    chol64 = np.ascontiguousarray(np.asarray(chol, dtype=np.float64))
+    return slot_inputs(tuple(blocks), chol64.tobytes())
+
+
+def _run_table(fn, tab: TableInputs, params64: torch.Tensor, calibration_date: float):
+    """Launch the prologue: (table, float32 parameters, initial state)."""
+    n_par = params64.shape[0]
+    size = tab.rows * tab.table_width
+    ws = torch.empty(size + n_par + tab.state_dim, dtype=torch.float32, device=params64.device)
+    rc = fn(ws.data_ptr(), tab.host.data_ptr(), params64.data_ptr(), tab.rows,
+            tab.host.shape[1], tab.table_width, n_par, tab.state_dim, *tab.groups, *tab.init,
+            calibration_date, torch.cuda.current_stream(ws.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hybrid_table: CUDA launch failed with cudaError_t {rc}")
+    hybrid_table.launches += 1
+    return ws[:size].view(tab.rows, tab.table_width), ws[size:size + n_par], ws[size + n_par:]
+
+
+def hybrid_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
+                 num_steps: int, calibration_date: float = 0.0):
+    """K2's per-call inputs: (table [T * num_steps, W], parameters [P],
+    initial state [D]), float32 on the device of ``params``.  CUDA
+    ``params`` launch the table prologue; CPU ``params`` run its plain
+    version (:func:`substep_table`, :func:`initial_state`)."""
+    _check_blocks(blocks, len(params))
+    device = params[0].device
+    if device.type == "cpu":
+        return (substep_table(blocks, params, timeline, num_steps, calibration_date),
+                torch.stack(params).detach().to(torch.float32),
+                initial_state(blocks, params, calibration_date))
+    if device.type != "cuda":
+        raise ValueError(f"hybrid_table: unsupported device {device}")
+    fn = _bind_table(_library(blocks))
+    tab, params64 = kernel_inputs(blocks, params, timeline, num_steps, calibration_date)
+    with torch.cuda.device(device):
+        return _run_table(fn, tab, params64, float(calibration_date))
+
+
+hybrid_table.launches = 0  # prologue launches
+
+
 def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
             calibration_date):
-    fn = _bind(cuda_build.load_library("hybrid_paths").lib)
-    device = params[0].device
-    slots, state_dim, _ = kernel_slots(blocks)
+    lib = _library(blocks)
+    fn = _bind(lib)
+    tab, params64 = kernel_inputs(blocks, params, timeline, num_steps, calibration_date)
+    slots = _slots_of(blocks, chol)
+    device = params64.device
     n_pts = len(timeline)
-    out = torch.empty((n_pts, num_paths, state_dim), dtype=torch.float32, device=device)
+    out = torch.empty((n_pts, num_paths, tab.state_dim), dtype=torch.float32, device=device)
     if n_pts == 0:
         return out
-    table = substep_table(blocks, params, timeline, num_steps, calibration_date)
-    init = initial_state(blocks, params, calibration_date)
-    prm = torch.stack(params).detach().to(torch.float32)
-    ns = len(slots)
-    ints = lambda xs: (ctypes.c_int * ns)(*xs)
-    c32 = _chol32(chol).reshape(-1)
     with torch.cuda.device(device):
+        table, prm, init = _run_table(_bind_table(lib), tab, params64, float(calibration_date))
         rc = fn(
-            out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(),
-            ns, *(ints([sl[i] for sl in slots]) for i in range(6)),
-            (ctypes.c_float * c32.size)(*c32.tolist()),
-            state_dim, table.shape[1], n_pts, num_steps, num_paths,
+            out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(), *slots,
+            tab.state_dim, tab.table_width, n_pts, num_steps, num_paths,
             seed & 0xFFFFFFFF, phase & 0xFFFFFFFF,
             torch.cuda.current_stream(device).cuda_stream,
         )
