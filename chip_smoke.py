@@ -21,7 +21,16 @@ plain PyTorch version:
     ``benchmarks/pv_large_book.py`` on the same model, a Hull-White bond, a
     Schwartz-2F call, standalone Black-Scholes, Vasicek and CIR++
     (stochastic and deterministic) books, and a mixed ModelConfig of
-    BS-multi, Vasicek, Hull-White and deterministic CIR++.
+    BS-multi, Vasicek, Hull-White and deterministic CIR++;
+  * the 50,000-product mixed PV book of ``benchmarks/pv_large_book.py``
+    (Europeans, binaries, baskets, Asians, barriers, Americans, FlexiCalls
+    and storage deals on the 4-asset BlackScholesMulti, 1,000 main and
+    1,000 presim paths) on K2's exact bs_multi block, forward and
+    differentiated; the products against their oracles (American puts
+    against a CRR tree, barriers, binary and FlexiCall against closed forms,
+    Asian call-put parity) on Black-Scholes, storage against a DP oracle on
+    Schwartz-2F; and the CVA book of ``benchmarks/cva_large_book.py`` at
+    scale 0.05 (a ModelConfig of BS-multi and CIR++, EULER).
 
 Phases:
 
@@ -38,7 +47,7 @@ Phases:
      wrapper's host time: K1; K2 and its table prologue on the north-star
      shapes; K2 on ragged and misaligned launches; K1 and K2 under
      torch.cuda.set_sync_debug_mode("error"); the K2 ladder of every
-     (block, scheme);
+     (block, scheme), the CVA book's bs_multi + cirpp tuple included;
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
@@ -53,8 +62,14 @@ Phases:
      kernel-route values and CVA/EPE jacobian against the engine route's
      on the same stream;
   7. the other K2 routes, each with its counts from 0 and its own oracle;
-  8. profile the BS-multi book (after all the walls: a profiler run
-     slows the launches that follow it);
+     then the mixed book (forward cold and warm; one netting set per
+     family differentiated on both routes: the book's PV 1e-4, its
+     jacobian rtol 1e-3, the families that miss printed), the product
+     oracles, the storage scenarios and the storage scan against its
+     unrolled path, and the CVA book (kernel vs engine route 1e-4), each
+     with its counts from 0;
+  8. profile the BS-multi book and the mixed book's forward run (after all
+     the walls: a profiler run slows the launches that follow it);
   9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
@@ -408,7 +423,7 @@ def k2_rung(label, blocks, chol, params, timeline, steps, num_paths=NUM_PATHS, p
                                phase=phase)
     run_plain = lambda: hybrid_paths_reference(blocks, chol, params, timeline, num_paths, steps,
                                                seed=SEED, phase=phase)
-    plain_ms = median_ms(run_plain)
+    plain_ms = median_ms(run_plain, reps=3)  # seconds a run on the slowest rungs
     state_dim = kernel_slots(blocks)[1]
     substeps = num_paths * live_substeps(timeline, steps)
     t_bound, by = bound(len(timeline) * num_paths * state_dim * 4,
@@ -572,16 +587,19 @@ def heston_main_path(device):
     return launches
 
 
-def profile_run(label: str, fn) -> None:
+def profile_run(label: str, fn, host_ops: bool = True) -> None:
     """One run under torch.profiler: wall, device busy time (the sum of the
     CUDA kernels' durations) and the five kernels that take the most.  A
     profiler run leaves the later launches of the process slower, so the
-    BS-multi book is profiled after every wall; the Heston and north-star
-    books keep their earlier order."""
+    BS-multi and mixed books are profiled after every wall; the Heston and
+    north-star books keep their earlier order.  ``host_ops=False`` traces
+    the device alone, for the long runs (a million host op events take a
+    minute to read back; the busy time needs only the kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         wall = wall_seconds(fn)
     by_name = {}
     for evt in prof.events():
@@ -666,7 +684,7 @@ def north_star_main_path():
           f"chunk {diff.grad_chunk_size}), peak memory {diff_peak:.2f} GiB")
     print(f"  K2 launches: {launches} (2 per run: presim + mainsim)")
     profile_run("forward", run_fwd)
-    profile_run("differentiated", run_diff)
+    profile_run("differentiated", run_diff, host_ops=False)
     launches = hybrid_paths.launches  # this main path only
     grads = diff_results.get_derivatives("north_star", f"cva[{CP}]", evaluation_idx=0)
     print(f"  dCVA/d irs.rate {float(grads['irs.rate']):.6f}, dCVA/d eq.spot "
@@ -711,14 +729,147 @@ HW_TIMES, HW_DFS = [0.0, 1.0, 3.0, 5.0], [1.0, 0.97, 0.90, 0.84]
 CIR_HAZARDS = {1.0: 0.02, 2.0: 0.022, 5.0: 0.028}
 
 
-def bs_multi_model():
-    """The 4-asset model of benchmarks/pv_european_book.py:38-46."""
+def bs_multi_model(pkg=mt):
+    """The 4-asset model of benchmarks/pv_european_book.py:38-46 (and of the
+    mixed and CVA books, pv_large_book.py:153-161)."""
     corr = np.full((4, 4), 0.35)
     np.fill_diagonal(corr, 1.0)
-    return mt.BlackScholesMulti(0.0, rate=0.03, asset_ids=list(ASSETS),
-                                spots=[95.0 + 7.5 * i for i in range(4)],
-                                volatilities=[0.18 + 0.03 * i for i in range(4)],
-                                correlation_matrix=corr)
+    return pkg.BlackScholesMulti(0.0, rate=0.03, asset_ids=list(ASSETS),
+                                 spots=[95.0 + 7.5 * i for i in range(4)],
+                                 volatilities=[0.18 + 0.03 * i for i in range(4)],
+                                 correlation_matrix=corr)
+
+
+# -- the mixed book and the CVA book (benchmarks/pv_large_book.py, cva_large_book.py) --------
+
+# Family counts of the 50,000-product mixed PV book (pv_large_book.py:149-150)
+# and of the 5,000-product CVA book (cva_large_book.py:48-49), in build order.
+MIXED_COUNTS = {"european": 39_400, "binary": 1_000, "basket": 1_000, "asian": 2_000,
+                "barrier": 4_000, "american": 1_800, "flexicall": 700, "storage": 100}
+CVA_COUNTS = {k: v // 10 for k, v in MIXED_COUNTS.items()}
+MIXED_PATHS = 1_000  # main and presim paths of both benchmarks
+CVA_SCALE = 0.05  # the full CVA book waits for batching (ROADMAP queue 1)
+ORACLE_PATHS = (1 << 17, 1 << 18, 1 << 20)  # American and FlexiCall, barriers, binary and Asian
+# The CVA benchmark's bootstrapped hazard curve (cva_large_book.py:39-43).
+CVA_HAZARDS = {0.5: 0.006402303360855854, 1.0: 0.01553038972325307,
+               2.0: 0.009729741230773657, 3.0: 0.015552544648116201,
+               4.0: 0.021196186202801115, 5.0: 0.02284319986706472,
+               7.0: 0.010111423894480876, 10.0: 0.00613267811172937,
+               15.0: 0.0036969930706003337, 20.0: 0.003791311459217732}
+
+
+def scaled_counts(counts, scale: float):
+    """Family counts at ``scale`` of the full book, at least one each
+    (pv_large_book.py:151)."""
+    return {k: max(1, int(v * scale)) for k, v in counts.items()}
+
+
+def make_storage(asset_id, maturity, capacity, initial, inj_cost, wd_cost, num_states, rollout,
+                 pkg=mt):
+    """A seasonal storage deal of the mixed book (pv_large_book.py:49-70)."""
+    cfg = pkg.StorageConfig()
+    ramp_end, plateau_end = 0.35 * maturity, 0.70 * maturity
+    cfg.add_volume_constraint(0.0, ramp_end, 0.0, 0.55 * capacity)
+    cfg.add_volume_constraint(ramp_end, plateau_end, 0.10 * capacity, 0.85 * capacity)
+    cfg.add_volume_constraint(plateau_end, maturity, 0.0, capacity)
+    cfg.add_injection_flexibility(0.0, ramp_end, 0.0, 0.30 * capacity)
+    cfg.add_injection_flexibility(0.0, ramp_end, 0.60 * capacity, 0.18 * capacity)
+    cfg.add_injection_flexibility(ramp_end, maturity, 0.0, 0.22 * capacity)
+    cfg.add_injection_flexibility(ramp_end, maturity, 0.60 * capacity, 0.12 * capacity)
+    cfg.add_withdrawal_flexibility(0.0, plateau_end, 0.0, 0.16 * capacity)
+    cfg.add_withdrawal_flexibility(0.0, plateau_end, 0.60 * capacity, 0.24 * capacity)
+    cfg.add_withdrawal_flexibility(plateau_end, maturity, 0.0, 0.24 * capacity)
+    cfg.add_withdrawal_flexibility(plateau_end, maturity, 0.60 * capacity, 0.32 * capacity)
+    cfg.add_variable_injection_cost(0.0, inj_cost)
+    cfg.add_variable_injection_cost(plateau_end, inj_cost * 1.10)
+    cfg.add_variable_withdrawal_cost(0.0, wd_cost)
+    cfg.add_variable_withdrawal_cost(plateau_end, wd_cost * 1.10)
+    return pkg.Storage(asset_id=asset_id, start_date=0.0, end_date=maturity,
+                       initial_amount=initial, storage_config=cfg, num_states=num_states,
+                       rollout_interval=rollout)
+
+
+def build_book(asset_ids, counts, pkg=mt):
+    """{family: products} of the mixed book, the families in build order
+    (pv_large_book.py:73-145, with the port's classes by default)."""
+    a = lambda i: asset_ids[i % len(asset_ids)]
+    cp = lambda even: pkg.OptionType.CALL if even else pkg.OptionType.PUT
+    mats, strikes = [0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0], [80.0, 90.0, 100.0, 110.0, 120.0]
+    book = {"european": [pkg.EuropeanOption(pkg.Equity(a(i)), mats[i % 8], strikes[i % 5],
+                                            cp(i % 2 == 0), asset_id=a(i))
+                         for i in range(counts["european"])],
+            "binary": [pkg.BinaryOption([0.5, 1.0, 1.5, 2.0][i % 4], [90.0, 100.0, 110.0][i % 3],
+                                        8.0 + 2.0 * (i % 4), cp(i % 2 == 0), asset_id=a(i))
+                       for i in range(counts["binary"])]}
+    basket_weights = [[0.5, 0.3, 0.2, 0.0], [0.25] * 4, [0.4, 0.35, 0.15, 0.10]]
+    book["basket"] = []
+    for i in range(counts["basket"]):
+        n_active = 2 + (i % 3)
+        w = basket_weights[i % 3][:n_active]
+        book["basket"].append(pkg.BasketOption(
+            [0.75, 1.25, 2.0, 2.5][i % 4], list(asset_ids[:n_active]), [x / sum(w) for x in w],
+            95.0 + 5.0 * (i % 5), cp(i % 2 == 0),
+            pkg.BasketOptionType.ARITHMETIC if i % 3 != 0 else pkg.BasketOptionType.GEOMETRIC))
+    book["asian"] = [pkg.AsianOption(
+        0.0, [0.5, 0.75, 1.0, 1.5, 2.0][i % 5], 88.0 + 6.0 * (i % 6), [8, 12, 18, 24][i % 4],
+        cp(i % 2 == 0),
+        pkg.AsianAveragingType.ARITHMETIC if i % 3 != 0 else pkg.AsianAveragingType.GEOMETRIC,
+        asset_id=a(i)) for i in range(counts["asian"])]
+    book["barrier"] = [pkg.BarrierOption(
+        0.0, [0.5, 0.75, 1.25, 1.75, 2.5, 3.0][i % 6], 85.0 + 7.5 * (i % 6),
+        [8, 12, 18, 24, 36][i % 5], cp(i % 3 != 0), [118.0, 125.0, 132.0, 140.0][i % 4]
+        + 2.0 * (i % 2), pkg.BarrierOptionType.UPANDOUT, asset_id=a(i))
+        for i in range(counts["barrier"])]
+    book["american"] = [pkg.AmericanOption(
+        pkg.Equity(a(i)), [0.75, 1.0, 1.5, 2.0, 2.5, 3.0][i % 6], [8, 12, 18, 24, 36, 48][i % 6],
+        [80.0, 92.5, 100.0, 107.5, 120.0][i % 5], cp(i % 2 != 0), asset_id=a(i))
+        for i in range(counts["american"])]
+    book["flexicall"] = []
+    for i in range(counts["flexicall"]):
+        maturity, n_dates = [1.0, 1.5, 2.0, 2.5][i % 4], [3, 4, 5][i % 3]
+        dates = np.linspace(maturity / n_dates, maturity, n_dates)
+        unds = [pkg.EuropeanOption(pkg.Equity(a(i)), float(t), 90.0 + 6.0 * ((i + k) % 6),
+                                   pkg.OptionType.CALL, asset_id=a(i))
+                for k, t in enumerate(dates)]
+        book["flexicall"].append(pkg.FlexiCall(unds, num_exercise_rights=min(1 + (i % 3),
+                                                                             n_dates - 1),
+                                               asset_id=a(i)))
+    book["storage"] = [make_storage(
+        a(i), [1.0, 1.5, 2.0, 2.5][i % 4], [18.0, 26.0, 34.0, 42.0][i % 4], 2.0 + 0.5 * (i % 5),
+        0.10 + 0.02 * (i % 4), 0.08 + 0.015 * (i % 4), 6 + (i % 5), [0.05, 0.10, 0.125][i % 3],
+        pkg) for i in range(counts["storage"])]
+    return book
+
+
+def mixed_book_parts(counts, by_family: bool = False, pkg=mt):
+    """(netting sets, model, metrics) of the mixed PV book: one netting set
+    (pv_large_book.py:165), or one per family."""
+    book = build_book(list(ASSETS), counts, pkg)
+    if by_family:
+        netting_sets = [pkg.NettingSet(name=f, products=ps) for f, ps in book.items()]
+    else:
+        netting_sets = [pkg.NettingSet(name="mixed_book",
+                                       products=[p for ps in book.values() for p in ps])]
+    return netting_sets, bs_multi_model(pkg), pkg.RiskMetrics(metrics=[pkg.PVMetric()])
+
+
+def cva_book_parts(scale: float = CVA_SCALE, pkg=mt, num_dates: int = 80):
+    """(netting sets, model, metrics) of the CVA book (cva_large_book.py:46-87):
+    the mixed book's families at a tenth, times ``scale``, on a ModelConfig
+    of BS-multi and a CIR++ counterparty, MPoR 10/252, CVA on ``num_dates``
+    dates to the last product date (the benchmark's 80 by default)."""
+    products = [p for ps in build_book(list(ASSETS), scaled_counts(CVA_COUNTS, scale), pkg).values()
+                for p in ps]
+    credit = pkg.CIRPPModel(0.0, asset_id=CP, hazard_rates=CVA_HAZARDS, kappa=0.10, theta=0.01,
+                            volatility=0.02, y0=0.0001)
+    model = pkg.ModelConfig([bs_multi_model(pkg), credit],
+                            inter_asset_correlation_matrix=[np.zeros((4, 1))])
+    horizon = max(p.modeling_timeline[-1] for p in products)
+    netting_set = pkg.NettingSet(name="cva_book", products=products, counterparty_id=CP,
+                                 margin_period_of_risk=10 / 252)
+    metrics = pkg.RiskMetrics(metrics=[pkg.CVAMetric(counterparty_id=CP, recovery_rate=0.4)],
+                              exposure_timeline=np.linspace(0.0, horizon, num_dates))
+    return [netting_set], model, metrics
 
 
 def euro_options(num_options: int):
@@ -1072,6 +1223,420 @@ def mixed_model():
                                         np.array([[0.1]]), np.array([[0.15]])])
 
 
+# -- the mixed book, the product oracles, storage and the CVA book ----------------------------
+
+def slice_controller(parts, num_paths, num_presim, scheme, differentiate=False, use_kernel="auto",
+                     **kw):
+    return mt.SimulationController(*parts, num_paths, num_presim, 1, scheme,
+                                   differentiate=differentiate, root_seed=SEED,
+                                   use_kernel=use_kernel, device="cuda", **kw)
+
+
+def mixed_controller(by_family=False, differentiate=False, use_kernel="auto"):
+    """The mixed PV book (pv_large_book.py:148-174) on the card: 1,000 main
+    and 1,000 presim paths, ANALYTICAL, one substep, PV."""
+    parts = mixed_book_parts(MIXED_COUNTS, by_family)
+    return slice_controller(parts, MIXED_PATHS, MIXED_PATHS, mt.SimulationScheme.ANALYTICAL,
+                            differentiate, use_kernel)
+
+
+def route_gap(label, kernel, engine, names):
+    """Kernel route vs engine route of differentiated runs on one stream, a
+    netting set per family: the book's PV (their sum) to 1e-4 relative and
+    its jacobian to rtol 1e-3, atol 1e-6; a family that misses these limits
+    prints its PV and jacobian on both routes.  (An exercise decision taken
+    at t = 0, where every path shares the spot, turns on continuation
+    values that the float32 paths move by ~1e-7: a near tie there flips the
+    decision on every path of that product, so a family can miss where the
+    book does not.)"""
+    k = np.array([pv_of(kernel, n)[0] for n in names])
+    e = np.array([pv_of(engine, n)[0] for n in names])
+    jk = np.array([np.asarray(kernel.get_derivatives(n, "pv"), dtype=float).ravel() for n in names])
+    je = np.array([np.asarray(engine.get_derivatives(n, "pv"), dtype=float).ravel() for n in names])
+    rel = np.abs(k - e) / np.maximum(np.abs(e), 1e-6)
+    for i in range(len(names)):
+        if rel[i] > 1e-4 or not np.allclose(jk[i], je[i], rtol=1e-3, atol=1e-6):
+            print(f"    {names[i]} misses the limits: pv kernel {k[i]:.10g} engine {e[i]:.10g} "
+                  f"(rel {rel[i]:.2e}); jacobian kernel {jk[i].tolist()} engine {je[i].tolist()}")
+    book_k, book_e, jac_k, jac_e = k.sum(), e.sum(), jk.sum(axis=0), je.sum(axis=0)
+    jrel = float(np.max(np.abs(jac_k - jac_e) / np.maximum(np.abs(jac_e), 1e-6)))
+    print(f"  {label}: kernel vs engine route book pv {book_k:.8g} vs {book_e:.8g} (rel "
+          f"{abs(book_k - book_e) / abs(book_e):.3e}), jacobian max rel err {jrel:.3e}; families' "
+          f"max rel err {rel.max():.3e}")
+    check(bool(np.isfinite(k).all() and np.isfinite(jk).all()), f"{label}: non-finite values")
+    np.testing.assert_allclose(book_k, book_e, rtol=1e-4, err_msg=label)
+    np.testing.assert_allclose(jac_k, jac_e, rtol=1e-3, atol=1e-6, err_msg=label)
+
+
+def mixed_main_path(device, issue=None):
+    """The 50,000-product mixed PV book on K2 (bs_multi exact, both
+    phases), counts from 0: one netting set forward (cold and warm), then
+    one netting set per family differentiated on the kernel route (the
+    differentiated wall: reverse mode, P = 9 > V = 8) and on the engine
+    route.  Returns the K2 row of the book's shapes (its launches filled in)
+    and the run to profile."""
+    reset_k2_counts()
+    t0 = time.perf_counter()
+    fwd = mixed_controller()
+    setup_s = time.perf_counter() - t0
+    check(fwd._kernel_active, "the mixed book is not on the kernel path")
+    families = dict(MIXED_COUNTS)
+    buckets, _ = fwd._exercise_scan_groups()
+    results = None
+
+    def run_fwd():
+        nonlocal results
+        results = fwd.run_simulation()
+
+    torch.cuda.reset_peak_memory_stats()
+    cold = wall_seconds(run_fwd)
+    check(hybrid_paths.launches == 2, f"forward run made {hybrid_paths.launches} K2 launches, not 2")
+    warm = wall_seconds(run_fwd)
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    pv, se = pv_of(results, "mixed_book")
+    print(f"[mixed book forward] {len(fwd.products)} products {families}, {MIXED_PATHS} + "
+          f"{MIXED_PATHS} presim paths, {len(fwd.simulation_timeline)}-point timeline, "
+          f"{len(buckets)} exercise buckets ({sum(map(len, buckets))} products): set-up "
+          f"{setup_s:.2f} s, cold wall {cold:.4f} s, warm wall {warm:.4f} s "
+          f"({len(fwd.products) / warm:.0f} products/s), peak memory {fwd_peak:.2f} GiB")
+    print(f"  pv {pv:.4f} se {se:.4f}; K2 launches per run: 2 (presim + mainsim)")
+    check(np.isfinite(pv) and np.isfinite(se) and se > 0, f"mixed book pv {pv} se {se}")
+
+    names = list(families)
+    diff = mixed_controller(by_family=True, differentiate=True)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    fam_k = diff.run_simulation()
+    torch.cuda.synchronize()
+    diff_s = time.perf_counter() - t1
+    diff_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(hybrid_paths.launches == 6, "the differentiated run did not launch K2 once per phase")
+    check(diff._grad_mode_resolved == "rev", "the mixed book's jacobian is not reverse mode")
+    launches = hybrid_paths.launches
+    del diff
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fam_e = mixed_controller(by_family=True, differentiate=True, use_kernel=False).run_simulation()
+    engine_s = time.perf_counter() - t1
+    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    grads = np.sum([np.asarray(fam_k.get_derivatives(n, "pv"), dtype=float).ravel()
+                    for n in names], axis=0)
+    print(f"[mixed book differentiated] one netting set per family: wall {diff_s:.4f} s (rev mode: "
+          f"P = 9 > V = 8), peak memory {diff_peak:.2f} GiB; engine route wall {engine_s:.4f} s; "
+          f"d pv / d spot[asset_0] {grads[0]:.4f}, d pv / d rate {grads[-1]:.4f}")
+    for n in names:
+        (pk, sk), (pe, _) = pv_of(fam_k, n), pv_of(fam_e, n)
+        print(f"  {n}: {families[n]} products, pv kernel {pk:.6f} engine {pe:.6f} (se {sk:.2e})")
+    check(bool(np.isfinite(grads).all()), "non-finite mixed-book gradient")
+    route_gap("mixed book by family", fam_k, fam_e, names)
+    # the kernel against its plain version at the book's shapes, after the
+    # counts were read: these launches are not the main path's
+    row = model_rung("bs_multi exact, mixed book", fwd, device, issue)
+    row["launches"] = launches
+    # the forward run only: a profiler run of the differentiated one records
+    # millions of events and takes minutes to read back
+    return row, {"mixed book forward": run_fwd}
+
+
+def crr_american_put(s0, k, r, sigma, maturity, steps=2000):
+    """Cox-Ross-Rubinstein tree (tests/test_american_option.py:27-40)."""
+    dt = maturity / steps
+    u = np.exp(sigma * np.sqrt(dt))
+    d = 1.0 / u
+    p = (np.exp(r * dt) - d) / (u - d)
+    disc = np.exp(-r * dt)
+    j = np.arange(steps + 1)
+    prices = s0 * u ** (steps - j) * d ** j
+    values = np.maximum(k - prices, 0.0)
+    for step in range(steps - 1, -1, -1):
+        prices = prices[: step + 1] * d
+        values = disc * (p * values[: step + 1] + (1 - p) * values[1: step + 2])
+        values = np.maximum(values, k - prices)
+    return values[0]
+
+
+def one_product(product, model, num_paths, num_presim):
+    """PV and SE of one product on the card (K2, ANALYTICAL)."""
+    c = slice_controller(([mt.NettingSet(name="p", products=[product])], model, PV()), num_paths,
+                         num_presim, mt.SimulationScheme.ANALYTICAL)
+    check(c._kernel_active, f"{type(product).__name__}: not on the kernel path")
+    return pv_of(c.run_simulation(), "p")
+
+
+def product_oracles():
+    """The products against their oracles at path counts a desk uses, on K2
+    (bs exact), each with the tolerance of the JAX package's own test;
+    returns K2's launches."""
+    reset_k2_counts()
+    bs = lambda rate, sigma: mt.BlackScholesModel(0.0, spot=100.0, rate=rate, sigma=sigma,
+                                                   asset_id="eq")
+    n17, n18, n20 = ORACLE_PATHS
+    crr = crr_american_put(100.0, 100.0, 0.05, 0.3, 1.0)
+    for itm_only in (False, True):
+        put = mt.AmericanOption(mt.Equity("eq"), 1.0, 50, 100.0, PUT, asset_id="eq")
+        put.itm_only_regression = itm_only
+        pv, se = one_product(put, bs(0.05, 0.3), n17, n17)
+        print(f"[american put, 50 dates, {'itm-only' if itm_only else 'all-path'} LSM] {n17} + {n17} "
+              f"presim paths: pv {pv:.5f} se {se:.5f} vs CRR {crr:.5f} ({pv / crr - 1:+.3%})")
+        if itm_only:  # tests/test_american_option.py:86-107
+            check(abs(pv / crr - 1.0) < 0.015, f"itm-only American put {pv} vs CRR {crr}")
+        else:  # tests/test_american_option.py:63-78
+            check(0.9 * crr < pv < crr + 4 * se, f"American put {pv} vs CRR {crr}")
+
+    model = bs(0.05, 0.2)
+    for kind, strike, barrier, tol in (("UPANDOUT", 90.0, 140.0, 0.06),
+                                       ("DOWNANDOUT", 100.0, 80.0, 0.03)):
+        option = mt.BarrierOption(0.0, 1.0, strike, 101, CALL, barrier, mt.BarrierOptionType[kind],
+                                  asset_id="eq")
+        option.set_use_brownian_bridge()
+        pv, se = one_product(option, model, n18, 0)
+        ref = float(option.compute_pv_analytically(model, model.initial_params(device="cpu")))
+        print(f"[barrier {kind} call, bridge, 101 dates] {n18} paths: pv {pv:.5f} se {se:.5f} vs "
+              f"closed form {ref:.5f} ({abs(pv - ref) / se:.2f} SE)")
+        check(abs(pv - ref) < max(6 * se, tol * ref), f"{kind} barrier {pv} vs {ref}")
+
+    model = bs(0.03, 0.25)
+    binary = mt.BinaryOption(1.0, 100.0, 10.0, CALL, asset_id="eq")
+    pv, se = one_product(binary, model, n20, 0)
+    ref = float(binary.compute_pv_analytically(model, model.initial_params(device="cpu")))
+    print(f"[binary call] {n20} paths: pv {pv:.5f} se {se:.5f} vs closed form {ref:.5f} "
+          f"({abs(pv - ref) / se:.2f} SE)")
+    check(abs(pv - ref) < max(4 * se, 0.02 * ref), f"binary {pv} vs {ref}")
+
+    # Asian: call - put = e^{-rT} (average - K) on every path
+    times = np.linspace(0.0, 1.0, 12)
+    asian = lambda kind: mt.AsianOption(0.0, 1.0, 100.0, len(times), kind,
+                                        mt.AsianAveragingType.ARITHMETIC, asset_id="eq")
+    c = slice_controller(([mt.NettingSet(name="call", products=[asian(CALL)]),
+                           mt.NettingSet(name="put", products=[asian(PUT)])], model, PV()),
+                         n20, 0, mt.SimulationScheme.ANALYTICAL)
+    check(c._kernel_active, "the Asian book is not on the kernel path")
+    r = c.run_simulation()
+    (call, _), (put, _) = pv_of(r, "call"), pv_of(r, "put")
+    disc, s0, rate, sigma = np.exp(-0.03), 100.0, 0.03, 0.25
+    mean = s0 * np.exp(rate * times)
+    cov = np.outer(mean, mean) * (np.exp(sigma ** 2 * np.minimum.outer(times, times)) - 1.0)
+    ref = disc * (mean.mean() - 100.0)
+    se_diff = disc * np.sqrt(cov.mean() / n20)  # the pathwise difference's exact SE
+    print(f"[asian arithmetic, 12 dates] {n20} paths: call - put {call - put:.5f} vs "
+          f"e^-rT (mean S0 e^(r t_i) - K) {ref:.5f} ({abs(call - put - ref) / se_diff:.2f} SE)")
+    check(abs(call - put - ref) < 4 * se_diff, f"Asian parity {call - put} vs {ref}")
+
+    dates, strikes = (0.5, 1.0, 1.5), (95.0, 100.0, 105.0)
+    europeans = [mt.EuropeanOption(mt.Equity("eq"), t, k, CALL, asset_id="eq")
+                 for t, k in zip(dates, strikes)]
+    cfs = [float(o.compute_pv_analytically(model, model.initial_params(device="cpu")))
+           for o in europeans]
+    pv, se = one_product(mt.FlexiCall(europeans, 2, asset_id="eq"), model, n17, n17)
+    print(f"[flexicall, 3 dates, 2 rights] {n17} + {n17} presim paths: pv {pv:.5f} se {se:.5f}; "
+          f"Europeans' closed forms {', '.join(f'{x:.5f}' for x in cfs)}")
+    check(0.95 * max(cfs) <= pv <= sum(cfs) + 4 * se, f"FlexiCall {pv} vs Europeans {cfs}")
+    launches = hybrid_paths.launches
+    print(f"  K2 launches: {launches}")
+    check(launches > 0, "the product oracles launched no K2")
+    return launches
+
+
+# The deterministic storage scenarios of tests/test_storage_s2f_scenarios.py:
+# (end date, initial amount, volume windows, injection ramp, withdrawal
+# ramp, injection cost, withdrawal cost, states, (day, price) curve, daily rate).
+STORAGE_SCENARIOS = {
+    "ramp_up_curve": (62.0, 0.0, ((0.0, 62.0, 0.0, 90.0),),
+                      ((0.0, 62.0, 0.0, 4.0), (0.0, 62.0, 50.0, 2.0)),
+                      ((0.0, 62.0, 0.0, 1.5), (0.0, 62.0, 50.0, 5.0)), 0.2, 0.05, 10,
+                      ((0.0, 100.0), (15.0, 100.0), (34.0, 110.0), (62.0, 112.0)), 0.0),
+    "seasonal_windows": (120.0, 0.0, ((0.0, 40.0, 0.0, 100.0), (40.0, 80.0, 20.0, 120.0),
+                                      (80.0, 121.0, 0.0, 60.0)),
+                         ((0.0, 60.0, 0.0, 5.0), (0.0, 60.0, 60.0, 3.5), (0.0, 60.0, 110.0, 2.0),
+                          (60.0, 121.0, 0.0, 6.5), (60.0, 121.0, 60.0, 4.0),
+                          (60.0, 121.0, 110.0, 2.5)),
+                         ((0.0, 60.0, 0.0, 2.0), (0.0, 60.0, 60.0, 3.6), (0.0, 60.0, 110.0, 5.0),
+                          (60.0, 121.0, 0.0, 2.6), (60.0, 121.0, 60.0, 4.4),
+                          (60.0, 121.0, 110.0, 6.4)), 0.35, 0.12, 12,
+                         ((0.0, 90.0), (30.0, 94.0), (60.0, 88.0), (90.0, 104.0), (120.0, 98.0)),
+                         0.0),
+    "forced_drawdown": (60.0, 48.0, ((0.0, 30.0, 0.0, 80.0), (30.0, 45.0, 0.0, 40.0),
+                                     (45.0, 61.0, 0.0, 10.0)),
+                        ((0.0, 61.0, 0.0, 2.0),), ((0.0, 61.0, 0.0, 3.0), (0.0, 61.0, 70.0, 6.0)),
+                        0.1, 0.1, 8, ((0.0, 120.0), (25.0, 112.0), (45.0, 104.0), (60.0, 100.0)),
+                        0.0),
+}
+STORAGE_SCENARIOS["discounted"] = STORAGE_SCENARIOS["ramp_up_curve"][:-1] + (0.10 / 365.0,)
+
+
+def scenario_storage(sc):
+    end, initial, windows, inj, wd, c_inj, c_wd, states = sc[:8]
+    cfg = mt.StorageConfig()
+    for start, stop, vmin, vmax in windows:
+        cfg.add_volume_constraint(start, stop, vmin, vmax, 0.0)
+    for start, stop, point, rate in inj:
+        cfg.add_injection_flexibility(start, stop, point, rate)
+    for start, stop, point, rate in wd:
+        cfg.add_withdrawal_flexibility(start, stop, point, rate)
+    cfg.add_variable_injection_cost(0.0, c_inj)
+    cfg.add_variable_withdrawal_cost(0.0, c_wd)
+    return mt.Storage(asset_id="gas", start_date=0.0, end_date=end, initial_amount=initial,
+                      storage_config=cfg, num_states=states)
+
+
+def scenario_model(sc):
+    """Schwartz-2F with zero volatilities: the spot is the forward curve."""
+    curve, rate = sc[8], sc[9]
+    return mt.SchwartzTwoFactorModel(0.0, [t for t, _ in curve], [v for _, v in curve], rate=rate,
+                                     short_term_mean_reversion=1.5 / 365.0, short_term_vol=0.0,
+                                     long_term_drift=0.0, long_term_vol=0.0, rho=0.2,
+                                     asset_id="gas")
+
+
+def storage_dp_oracle(storage, spot_fn, rate: float) -> float:
+    """Backward grid DP with interpolated continuations, then the forward
+    policy rollout, in plain numpy (tests/test_storage_s2f_scenarios.py:96-177)."""
+    cfg, S = storage.storage_config, storage.num_states
+    grid = np.arange(S, dtype=float)
+
+    def event(i):
+        t, tn = storage.product_timeline[i], storage.next_action_dates[i]
+        pw, nw = cfg.get_volume_constraint(t), cfg.get_volume_constraint(tn)
+        period, spot = max(tn - t, 0.0), spot_fn(t)
+        span_p, span_n = pw.vmax - pw.vmin, max(nw.vmax - nw.vmin, 1e-30)
+        cinj, cwd = cfg.get_variable_injection_cost(t), cfg.get_variable_withdrawal_cost(t)
+
+        def actions(states):
+            prev = pw.vmin + np.asarray(states, dtype=float) * span_p / (S - 1)
+            inj = np.array([cfg.get_injection_flexibility_rate(t, v) for v in prev])
+            wd = np.array([cfg.get_withdrawal_flexibility_rate(t, v) for v in prev])
+            vols = np.stack([np.minimum(prev + inj * period, nw.vmax), np.clip(prev, nw.vmin, nw.vmax),
+                             np.maximum(prev - wd * period, nw.vmin)])
+            deltas = vols - prev
+            hold_price = np.where(deltas[1] >= 0.0, spot + cinj, spot - cwd)
+            payoffs = np.stack([-deltas[0] * (spot + cinj), -deltas[1] * hold_price,
+                                -deltas[2] * (spot - cwd)])
+            return payoffs, np.clip((vols - nw.vmin) * (S - 1) / span_n, 0.0, S - 1.0)
+
+        return actions, tn >= storage.end_date - 1e-12, t, tn
+
+    events = [event(i) for i in range(len(storage.product_timeline))]
+    v_grids, v_next = [None] * len(events), np.zeros(S)
+    for i in reversed(range(len(events))):
+        actions, is_last, t, tn = events[i]
+        payoffs, coords = actions(grid)
+        cont = (np.zeros_like(payoffs) if is_last
+                else np.stack([np.interp(c, grid, v_next) for c in coords]))
+        vals = payoffs + np.exp(-rate * (tn - t)) * cont
+        v_next = vals[np.argmax(vals, axis=0), np.arange(S)]
+        v_grids[i] = v_next.copy()
+    x, pv = 0.0, 0.0
+    for i, (actions, is_last, t, tn) in enumerate(events):
+        payoffs, coords = actions(np.array([x]))
+        cont = (np.zeros((3, 1)) if is_last
+                else np.stack([np.interp(c, grid, v_grids[i + 1]) for c in coords]))
+        best = int(np.argmax(payoffs[:, 0] + np.exp(-rate * (tn - t)) * cont[:, 0]))
+        pv += payoffs[best, 0] * np.exp(-rate * t)
+        x = coords[best, 0]
+    return pv
+
+
+def storage_phase():
+    """Storage on K2 (s2f exact): the deterministic scenarios against the DP
+    oracle, then the event scan against the per-date unrolled path on
+    tests/test_storage_scan_equivalence.py's set-up (rel 1e-12); returns
+    K2's launches.  The scenarios hold to the JAX test's rel 1e-9 on the
+    engine route (float64 paths; EULER, the test's scheme: the exact step's
+    Cholesky needs a volatility); on K2 (ANALYTICAL) the state log S is
+    float32 (|log S| ~ 4.7: ~3e-7 relative in the spot), so the kernel route
+    holds to 1e-6."""
+    reset_k2_counts()
+    for name, sc in STORAGE_SCENARIOS.items():
+        curve = sc[8]
+        spot_fn = lambda t: float(np.interp(t, [c[0] for c in curve], [c[1] for c in curve]))
+        expected = storage_dp_oracle(scenario_storage(sc), spot_fn, sc[9])
+        check(expected != 0.0, f"storage {name}: the oracle's PV is 0")
+        pvs = {}
+        for use_kernel, rtol, scheme in (("auto", 1e-6, mt.SimulationScheme.ANALYTICAL),
+                                         (False, 1e-9, mt.SimulationScheme.EULER)):
+            c = slice_controller(([mt.NettingSet(name="storage", products=[scenario_storage(sc)])],
+                                  scenario_model(sc), PV()), 256, 256, scheme, use_kernel=use_kernel,
+                                 regression_function=mt.PolynomialRegression(degree=3))
+            check(c._kernel_active == (use_kernel == "auto"), f"storage {name}: wrong route")
+            pvs[use_kernel] = pv = pv_of(c.run_simulation(), "storage")[0]
+            check(abs(pv - expected) <= rtol * abs(expected) + 1e-9,
+                  f"storage {name} ({'kernel' if use_kernel else 'engine'} route): {pv} vs "
+                  f"{expected}")
+        print(f"[storage {name}] pv kernel {pvs['auto']:.9f} (rel {pvs['auto'] / expected - 1:+.2e}), "
+              f"engine {pvs[False]:.9f} (rel {pvs[False] / expected - 1:+.2e}) vs DP oracle "
+              f"{expected:.9f}")
+
+    def scan_storage():
+        cfg = mt.StorageConfig()
+        cfg.add_volume_constraint(0.0, 2.0, 0.0, 10.0)
+        cfg.add_injection_flexibility(0.0, 2.0, 0.0, 3.0)
+        cfg.add_injection_flexibility(0.0, 2.0, 6.0, 1.5)
+        cfg.add_withdrawal_flexibility(0.0, 2.0, 0.0, 1.0)
+        cfg.add_withdrawal_flexibility(0.0, 2.0, 6.0, 2.5)
+        cfg.add_variable_injection_cost(0.0, 0.2)
+        cfg.add_variable_withdrawal_cost(0.0, 0.15)
+        return mt.Storage(asset_id="gas", start_date=0.0, end_date=2.0, initial_amount=3.0,
+                          storage_config=cfg, num_states=6, rollout_interval=0.25)
+
+    def gas_pv(unrolled):
+        model = mt.SchwartzTwoFactorModel(0.0, [0.0, 2.0], [10.0, 11.0], rate=0.02,
+                                          short_term_mean_reversion=1.0, short_term_vol=0.4,
+                                          long_term_drift=0.01, long_term_vol=0.2, rho=0.3,
+                                          asset_id="gas")
+        c = slice_controller(([mt.NettingSet(name="s", products=[scan_storage()])], model, PV()),
+                             4000, 4000, mt.SimulationScheme.ANALYTICAL)
+        check(c._kernel_active, "the storage scan book is not on the kernel path")
+        if unrolled:
+            c._supports_exercise_scan = lambda p: False
+        return pv_of(c.run_simulation(), "s")[0]
+
+    scan, unrolled = gas_pv(False), gas_pv(True)
+    print(f"[storage scan vs unrolled] 4000 + 4000 paths: {scan:.12f} vs {unrolled:.12f} "
+          f"(rel {abs(scan - unrolled) / abs(unrolled):.2e})")
+    check(abs(scan - unrolled) <= 1e-12 * abs(unrolled), "storage scan and unrolled path differ")
+    launches = hybrid_paths.launches
+    check(launches > 0, "the storage phase launched no K2")
+    return launches
+
+
+def cva_controller(use_kernel="auto"):
+    return slice_controller(cva_book_parts(), MIXED_PATHS, MIXED_PATHS, mt.SimulationScheme.EULER,
+                            use_kernel=use_kernel)
+
+
+def cva_phase():
+    """The CVA book at scale 0.05 (cva_large_book.py:46-87) forward on K2
+    (bs_multi Euler + cirpp, both phases): CVA finite and positive, kernel
+    vs engine route 1e-4; returns K2's launches."""
+    reset_k2_counts()
+    c = cva_controller()
+    check(c._kernel_active, "the CVA book is not on the kernel path")
+    results = None
+
+    def run():
+        nonlocal results
+        results = c.run_simulation()
+
+    cold = wall_seconds(run)
+    launches = hybrid_paths.launches
+    check(launches == 2, f"the CVA book made {launches} K2 launches, not 2")
+    name = f"cva[{CP}]"
+    cva = float(results.get_results("cva_book", name, evaluation_idx=0))
+    se = float(results.get_mc_error("cva_book", name, evaluation_idx=0))
+    engine = cva_controller(use_kernel=False).run_simulation()
+    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    cva_e = float(engine.get_results("cva_book", name, evaluation_idx=0))
+    print(f"[cva book, scale {CVA_SCALE}] {len(c.products)} products, {MIXED_PATHS} + {MIXED_PATHS} "
+          f"presim paths, {len(c.exposure_timeline)} exposure dates: cold wall {cold:.4f} s, "
+          f"K2 launches {launches}; CVA {cva:.6f} (se {se:.2e}), engine "
+          f"route {cva_e:.6f} (rel {abs(cva - cva_e) / abs(cva_e):.2e})")
+    print(f"  the full {sum(CVA_COUNTS.values())}-product CVA book waits for batching "
+          "(ROADMAP queue 1): its per-product LSM fits would take minutes")
+    check(np.isfinite(cva) and cva > 0, f"CVA {cva}")
+    np.testing.assert_allclose(cva, cva_e, rtol=1e-4, err_msg="CVA kernel vs engine route")
+    return launches
+
+
 def k2_ladder(device, issue=None):
     """Phase 3c: every (block, scheme) of K2 against its plain version at
     the shapes of the book that runs it (the mixed ModelConfig at the
@@ -1088,6 +1653,8 @@ def k2_ladder(device, issue=None):
     rows["hw euler"] = model_rung("hw euler", hw_book(M), device, issue)
     rows["s2f exact"] = model_rung("s2f exact", s2f_book(A, False), device, issue)
     rows["s2f euler"] = model_rung("s2f euler", s2f_book(E, False), device, issue)
+    rows["bs_multi, cirpp euler"] = model_rung("bs_multi, cirpp euler", cva_controller(), device,
+                                               issue)
     mixed = mixed_model()
     ns_dense, _ = dense_timeline(0.0, north_star(NS_PATHS, False).simulation_timeline, 1)
     rows["bs_multi, vasicek, hw, cirpp_det euler"] = k2_rung(
@@ -1103,7 +1670,7 @@ def k2_block_tuples():
     A, E, M = (mt.SimulationScheme.ANALYTICAL, mt.SimulationScheme.EULER,
                mt.SimulationScheme.MILSTEIN)
     books = [route_book(spec) for spec in route_specs().values()]
-    books += [hw_book(A), hw_book(M), s2f_book(A, False), s2f_book(E, False)]
+    books += [hw_book(A), hw_book(M), s2f_book(A, False), s2f_book(E, False), cva_controller()]
     return ([north_star(NS_PATHS, False).model.kernel_blocks(), [bs_multi_model().kernel_block(A)]]
             + [blocks_of(c)[0] for c in books])
 
@@ -1483,6 +2050,7 @@ def main():
     torch.cuda.empty_cache()
     k1_launches = heston_main_path(device)
     torch.cuda.empty_cache()
+    print(f"[time] BS-multi and Heston books done after {time.perf_counter() - t_start:.1f} s")
     ns_row["launches"] = north_star_main_path()
     table_json["launches"] = k2_module.hybrid_table.launches
     check(table_json["launches"] == hybrid_paths.launches, "prologue launches differ")
@@ -1496,13 +2064,29 @@ def main():
     rows["s2f exact"]["launches"] = s2f_phase(mt.SimulationScheme.ANALYTICAL)
     rows["s2f euler"]["launches"] = s2f_phase(mt.SimulationScheme.EULER)
     check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
+    print(f"[time] routes done after {time.perf_counter() - t_start:.1f} s")
+
+    # 7b. the mixed PV book (a row of its own at its shapes), the product
+    # oracles (bs exact) and storage (s2f exact), whose launches add to
+    # their tuples' rows, and the CVA book (the bs_multi + cirpp tuple)
+    rows["bs_multi exact, mixed book"], mixed_runs = mixed_main_path(device, issue)
+    torch.cuda.empty_cache()
+    print(f"[time] mixed book done after {time.perf_counter() - t_start:.1f} s")
+    rows["bs exact"]["launches"] += product_oracles()
+    rows["s2f exact"]["launches"] += storage_phase()
+    rows["bs_multi, cirpp euler"]["launches"] = cva_phase()
+    print(f"[time] oracles, storage and the CVA book done after {time.perf_counter() - t_start:.1f} s")
+    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
     k2_rows = [ns_row, *rows.values(), table_json]
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
           "a kernel of the main paths never launched")
 
-    # 8. the BS-multi book's device busy share, after every wall it would slow
+    # 8. the BS-multi and mixed books' device busy shares, after every wall
+    # they would slow
     for label, run in euro_runs.items():
         profile_run(label, run)
+    for label, run in mixed_runs.items():
+        profile_run(label, run, host_ops=False)
     print(f"[time] all phases done after {time.perf_counter() - t_start:.1f} s")
 
     # 9. result lines

@@ -4,10 +4,13 @@ A second package beside ``montecarlo_risk_engine_tpu`` (the JAX reference,
 which it never imports).  Ported so far: the Heston-QE European book, the
 north-star xVA book (a ModelConfig of Vasicek, Black-Scholes and CIR++
 models; swaps and options; LSM exposures, MPoR collateral, CVA, EPE, PFE)
-and the BS-multi European and basket books, with the Black-Scholes,
-BS-multi, Vasicek, CIR++ (stochastic and deterministic), Hull-White and
-Schwartz-2F models each on their own or in a ModelConfig, through
-``SimulationController``, forward and differentiated, with the path kernels
+the BS-multi European and basket books, and the mixed book of every
+product family: binary, Asian and barrier options, and the exercise products
+(Bermudan and American options, FlexiCall, gas storage) by Longstaff-Schwartz,
+with the Black-Scholes, BS-multi, Vasicek, CIR++ (stochastic and
+deterministic), Hull-White and Schwartz-2F models each on their own or in a
+ModelConfig, through ``SimulationController``, forward and differentiated,
+with the path kernels
 written in CUDA for Hopper (``ops/heston_qe.py`` + ``csrc/heston_qe.cu``,
 ``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
 """
@@ -36,12 +39,19 @@ from montecarlo_risk_engine_tpu_torch.models.hull_white import HullWhiteModel
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
 from montecarlo_risk_engine_tpu_torch.models.schwartz_two_factor import SchwartzTwoFactorModel
 from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
+from montecarlo_risk_engine_tpu_torch.products.asian_option import AsianAveragingType, AsianOption
+from montecarlo_risk_engine_tpu_torch.products.barrier_option import BarrierOption, BarrierOptionType
 from montecarlo_risk_engine_tpu_torch.products.base import OptionType, Product, ProductFamily
 from montecarlo_risk_engine_tpu_torch.products.basket_option import BasketOption, BasketOptionType
+from montecarlo_risk_engine_tpu_torch.products.bermudan_option import AmericanOption, BermudanOption
+from montecarlo_risk_engine_tpu_torch.products.binary_option import BinaryOption
 from montecarlo_risk_engine_tpu_torch.products.bond import Bond
 from montecarlo_risk_engine_tpu_torch.products.equity import Equity
 from montecarlo_risk_engine_tpu_torch.products.european_option import EuropeanOption
+from montecarlo_risk_engine_tpu_torch.products.flexicall import FlexiCall
 from montecarlo_risk_engine_tpu_torch.products.netting_set import NettingSet
+from montecarlo_risk_engine_tpu_torch.products.storage import Storage, StorageAction
+from montecarlo_risk_engine_tpu_torch.products.storage_config import StorageConfig
 from montecarlo_risk_engine_tpu_torch.products.swap import InterestRateSwap, IRSType
 from montecarlo_risk_engine_tpu_torch.utils.regression import PolynomialRegression
 

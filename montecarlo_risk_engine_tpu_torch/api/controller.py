@@ -7,8 +7,13 @@ dates plus MPoR collateral query dates), the pre-simulation and the LSM
 fits of the exposure profiles, plane-mode simulation and request
 resolution, per-product valuation into netting sets with thresholds and
 MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE, CVA),
-first-order sensitivities and the named result assembly.  Early-exercise
-products, Hessians, batching and streaming are not ported yet.
+first-order sensitivities and the named result assembly.  Exercise products
+(Bermudan, American, FlexiCall, Storage) run their LSM fit and valuation as
+loops over stacked event tables, one per bucket of products of one static
+signature (controller.py:490-876); products without a scan step take the
+per-date unrolled path.  The exercise decisions stay hard: gradients flow
+through the payoffs and the pre-simulation fits, never through the policy.
+Hessians, batching and streaming are not ported yet.
 
 PyTorch runs the pipeline eagerly on ``device``.  Path generation takes one
 of two routes:
@@ -28,7 +33,9 @@ of two routes:
 ``use_kernel``: "auto" takes the kernel whenever eligible, True requires it
 (an ineligible book raises), False forces the engine.  An injected
 ``noise_source`` ({phase: counter -> (z, u)}, the test seam that feeds the
-JAX engine's own draws) forces the engine too.
+JAX engine's own draws) forces the engine too.  ``bridge_source`` ((product
+id, barrier index, paths, intervals) -> uniforms) is its twin for the
+Brownian-bridge uniforms of barrier options (products/barrier_option.py).
 
 Sensitivities take the direction the JAX package takes (controller.py:
 1700-1705): forward mode when the parameter count P is at most the value
@@ -89,6 +96,9 @@ logger = logging.getLogger(__name__)
 # Metrics reported once per netting set; the others once per metric
 # exposure date (controller.py:2360-2373).
 _SCALAR_METRICS = {MetricType.PV, MetricType.CVA, MetricType.EEPE, MetricType.CE}
+# Elements of the stacked [dates, N, deg] basis of one batched exposure fit:
+# a 1,000-path book fits all its dates at once, a 1e6-path book one at a time.
+_FIT_BATCH_ELEMENTS = 1 << 22
 
 
 class SimulationController:
@@ -110,6 +120,7 @@ class SimulationController:
         use_kernel: object = "auto",
         device=None,
         noise_source: Optional[Dict[int, Callable]] = None,
+        bridge_source: Optional[Callable] = None,
     ):
         self.risk_metrics = risk_metrics
         netting_sets = list(netting_sets)
@@ -181,6 +192,8 @@ class SimulationController:
 
         for prod_id, prod in enumerate(self.products):
             prod.product_id = prod_id
+            if bridge_source is not None and hasattr(prod, "bridge_source"):
+                prod.bridge_source = bridge_source
 
         if differentiate:
             self.model.requires_grad()
@@ -190,16 +203,14 @@ class SimulationController:
         self.simulation_timeline: Tuple[float, ...] = tuple(
             sorted(prod_times | set(self.exposure_timeline)))
 
-        exercise = [type(p).__name__ for p in self.products if len(p.regression_timeline) > 0]
-        if exercise:
-            raise NotImplementedError(
-                f"early-exercise products are not ported yet: {sorted(set(exercise))}")
         self.requires_regression = any(self._product_requires_regression(p)
                                        for p in self.products)
         if self.requires_regression and self.num_paths_presim <= 0:
+            offenders = sorted({type(p).__name__ for p in self.products
+                                if self._product_requires_regression(p)})
             raise ValueError(
-                "num_paths_presim must be > 0: the book's exposure profiles need "
-                "least-squares fits on pre-simulation paths")
+                "num_paths_presim must be > 0: the book needs least-squares fits (early "
+                f"exercise or LSM exposure profiles) for {offenders}, on pre-simulation paths")
 
         self._kernel_active = self._decide_kernel()
         self._plan: Optional[RequestPlan] = None
@@ -234,6 +245,8 @@ class SimulationController:
                 and product.supports_analytic_exposure(self.model))
 
     def _product_requires_regression(self, product: Product) -> bool:
+        if len(product.regression_timeline) > 0:
+            return True
         return (self.risk_metrics.requires_exposure_profiles()
                 and not self._can_use_analytic_exposure_for_product(product))
 
@@ -269,6 +282,13 @@ class SimulationController:
         if self.use_kernel is False or self.noise_source is not None:
             return False
         return eligible
+
+    def _ensure_plan(self) -> None:
+        if self._plan is None:
+            self._plan = RequestPlan(self.model)
+            self._plan.collect_and_index_requests(
+                self.products, self.simulation_timeline, self._get_requests(),
+                self.metric_exposure_timeline)
 
     @staticmethod
     def _make_unique_names(base_names: List[str]) -> List[str]:
@@ -337,25 +357,44 @@ class SimulationController:
             )
         return self._plan.resolve_requests(params, states)
 
-    # -- LSM regression of the exposures (controller.py:399-477) --------------------
+    # -- LSM regression (controller.py:399-477) -------------------------------------
 
     def _initial_hypothetical_state(self, product: Product, num_paths: int):
-        row = torch.arange(product.get_num_states(), device=self.device)
+        """Every state once per path, [N, S]: float for continuous states
+        (Storage), integer otherwise (controller.py:399-405)."""
+        dtype = real_dtype() if product.state_is_continuous() else torch.long
+        row = torch.arange(product.get_num_states(), dtype=dtype, device=self.device)
         return row.expand(num_paths, -1)
 
+    def _initial_state(self, product: Product, shape):
+        """The realized initial state, in the product's state dtype."""
+        dtype = real_dtype() if product.state_is_continuous() else torch.long
+        return torch.full(shape, product.get_initial_state(), dtype=dtype, device=self.device)
+
     def _perform_regression_for_product(self, product: Product, params, resolved):
-        """Backward induction over the exposure dates: {exposure index:
-        coeffs [num_states, degree]} fitted on pre-simulation paths."""
+        """Backward induction over the product's regression dates and the
+        exposure dates on pre-simulation paths: sets
+        ``product.regression_coeffs`` [len(regression timeline), S, deg] (read
+        by its per-date exercise step) and returns the exposure coefficients
+        [len(exposure timeline), S, deg], zero after the last cashflow."""
+        regression_times = sorted(set(product.regression_timeline) | set(self.exposure_timeline))
         product_timeline = product.product_timeline
+        product_reg_timeline = product.regression_timeline
         num_states = product.get_num_states()
         num_paths = self.num_paths_presim
         dtype = real_dtype()
-        coeffs_by_date = {}
+        zero = torch.zeros((num_states, self.regression_function.get_degree()), dtype=dtype,
+                           device=self.device)
+        # rows are filled from the last date back: the exercise step at a
+        # later date reads its row while an earlier date is being fitted
+        product.regression_coeffs = [zero] * len(product_reg_timeline)
+        exposure_coeffs = [zero] * len(self.exposure_timeline)
+        pending = []  # (exposure index, basis, targets) of the exposure-only dates
 
         last_cf_index = len(product_timeline)
         cf_cache = {last_cf_index: torch.zeros((num_paths, num_states), dtype=dtype,
                                                device=self.device)}
-        for t_reg in reversed(self.exposure_timeline):
+        for t_reg in reversed(regression_times):
             idx = bisect_left(product_timeline, t_reg)
             if idx >= len(product_timeline):
                 continue
@@ -377,23 +416,258 @@ class SimulationController:
             else:
                 total_cfs = cf_cache[t_next]
 
-            numeraire = resolved[0][self.numeraire_requests[(t_reg, "numeraire")].handle]
-            explanatory = resolved[0][self.spot_requests[(t_reg, product.asset_ids[0])].handle]
+            if t_reg in product_reg_timeline:
+                i_t = product_timeline.index(t_reg)
+                numeraire = resolved[0][product.numeraire_requests[i_t].handle]
+                explanatory = resolved[0][product.spot_requests[(i_t, product.asset_ids[0])].handle]
+            else:
+                numeraire = resolved[0][self.numeraire_requests[(t_reg, "numeraire")].handle]
+                explanatory = resolved[0][self.spot_requests[(t_reg, product.asset_ids[0])].handle]
             numeraire_col = numeraire[:, None] if numeraire.dim() == 1 else numeraire
             basis = self.regression_function.get_regression_matrix(
                 torch.broadcast_to(explanatory, (num_paths,)))
-            coeffs_by_date[self._exposure_time_to_idx[t_reg]] = fit_least_squares(
-                basis, numeraire_col * total_cfs)
-        return coeffs_by_date
+            targets = torch.broadcast_to(numeraire_col * total_cfs, (num_paths, num_states))
+            if t_reg in product_reg_timeline:
+                coeffs = fit_least_squares(basis, targets)
+                product.regression_coeffs[product_reg_timeline.index(t_reg)] = coeffs
+                if t_reg in self._exposure_time_to_idx:
+                    exposure_coeffs[self._exposure_time_to_idx[t_reg]] = coeffs
+            else:
+                pending.append((self._exposure_time_to_idx[t_reg], basis, targets))
+        # The exposure-only fits feed no exercise step: batched solves, as many
+        # dates at a time as keep the stacked basis under _FIT_BATCH_ELEMENTS.
+        group = max(1, _FIT_BATCH_ELEMENTS // (num_paths * self.regression_function.get_degree()))
+        for start in range(0, len(pending), group):
+            chunk = pending[start:start + group]
+            coeffs = fit_least_squares(torch.stack([c[1] for c in chunk]),
+                                       torch.stack([c[2] for c in chunk]))
+            for (exp_idx, _, _), c in zip(chunk, coeffs.unbind(0)):
+                exposure_coeffs[exp_idx] = c
+        product.regression_coeffs = (torch.stack(product.regression_coeffs)
+                                     if product_reg_timeline else None)
+        return torch.stack(exposure_coeffs) if exposure_coeffs else None
 
-    # -- valuation (controller.py:877-1013) ---------------------------------------
+    # -- exercise products: the event scans (controller.py:490-723) -------------------
+    #
+    # A product with one decision per date runs its LSM backward induction and
+    # its forward valuation as a loop over dense event tables (its dates and
+    # the exposure dates, [E, N] rows) instead of the per-date unrolled path.
+    # Products of one static signature run as a bucket: every tensor carries a
+    # leading product axis ([P, E, N] tables, [P, N, S] states, batched fits),
+    # so 1,800 Americans cost one loop per bucket, not one per product.  A
+    # product alone is a bucket of one.
 
-    def _evaluate_product(self, product: Product, params, resolved, coeffs_by_date):
-        """(numeraire-deflated cashflows [N], exposure profiles [E, N])."""
+    def _supports_exercise_scan(self, product: Product) -> bool:
+        return (hasattr(product, "scan_exercise_step")
+                and len(product.product_timeline) > 0
+                and tuple(product.regression_timeline) == tuple(product.product_timeline))
+
+    def _exercise_bucket_key(self, product: Product):
+        """Static signature (controller.py:760-778): bucket-mates share shapes
+        and flags, never values; every per-date number rides in the tables."""
+        extras = product.scan_event_extras()
+        sig = None if extras is None else tuple((k, np.shape(v)) for k, v in sorted(extras.items()))
+        e_tot = len(set(product.product_timeline) | set(self.exposure_timeline))
+        return (type(product).__name__, e_tot, product.get_num_states(),
+                product.state_is_continuous(), product.get_initial_state(), sig)
+
+    def _exercise_scan_groups(self):
+        """(scan buckets, products on the per-date unrolled path) among the
+        products that need a regression, in book order (controller.py:733-758).
+        A product whose ``scan_bucket_statics`` is None stays alone."""
+        by_key: Dict[tuple, List[Product]] = {}
+        plain = []
+        for product in self.products:
+            if not self._product_requires_regression(product):
+                continue
+            if self._supports_exercise_scan(product):
+                statics = product.scan_bucket_statics()
+                key = (("single", id(product)) if statics is None
+                       else self._exercise_bucket_key(product) + (statics,))
+                by_key.setdefault(key, []).append(product)
+            else:
+                plain.append(product)
+        return list(by_key.values()), plain
+
+    def _exercise_event_tables(self, products: Sequence[Product], resolved, num_paths: int):
+        """Stacked event tables of a bucket (controller.py:497-553): per
+        product its dates and the exposure dates in time order, rows of the
+        explanatory spot, numeraire and underlying value [P, E, N], the strike
+        [P, E], the product-row mask [P, E], the extras rows {name: [P, E,
+        ...]} (None without extras) and, per product, the rows of its dates
+        and of the exposure dates (in exposure-timeline order)."""
+        dtype = real_dtype()
+        zeros = torch.zeros((num_paths,), dtype=dtype, device=self.device)
+        expl, num, und, strike, is_prod, extras_rows, prod_rows, exp_rows = ([] for _ in range(8))
+        for product in products:
+            asset = product.asset_ids[0]
+            prod_time_to_idx = {t: i for i, t in enumerate(product.product_timeline)}
+            strikes = product.scan_event_strikes()
+            e_rows, n_rows, u_rows, s_row, p_row, x_idx, p_rows, x_rows = ([] for _ in range(8))
+            for row, t in enumerate(sorted(set(product.product_timeline)
+                                           | set(self.exposure_timeline))):
+                if t in prod_time_to_idx:
+                    i = prod_time_to_idx[t]
+                    e = resolved[0][product.spot_requests[(i, asset)].handle]
+                    n = resolved[0][product.numeraire_requests[i].handle]
+                    u = (resolved[1][product.underlying_requests[i].get_handle()]
+                         if i in product.underlying_requests else zeros)
+                    s_row.append(strikes[i])
+                    p_row.append(True)
+                    x_idx.append(i)
+                    p_rows.append(row)
+                else:
+                    e = resolved[0][self.spot_requests[(t, asset)].handle]
+                    n = resolved[0][self.numeraire_requests[(t, "numeraire")].handle]
+                    u = zeros
+                    s_row.append(0.0)
+                    p_row.append(False)
+                    x_idx.append(0)  # any valid row: the step's result is masked out
+                if t in self._exposure_time_to_idx:
+                    x_rows.append(row)
+                e_rows.append(torch.broadcast_to(e, (num_paths,)))
+                n_rows.append(torch.broadcast_to(n, (num_paths,)))
+                u_rows.append(torch.broadcast_to(u, (num_paths,)))
+            expl.append(torch.stack(e_rows))
+            num.append(torch.stack(n_rows))
+            und.append(torch.stack(u_rows))
+            strike.append(s_row)
+            is_prod.append(p_row)
+            extras = product.scan_event_extras()
+            extras_rows.append(None if extras is None
+                               else {k: np.asarray(v)[x_idx] for k, v in extras.items()})
+            prod_rows.append(np.asarray(p_rows, dtype=np.int64))
+            exp_rows.append(np.asarray(x_rows, dtype=np.int64))
+        as_t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=self.device)
+        extras = None if extras_rows[0] is None else {
+            k: as_t(np.stack([x[k] for x in extras_rows])) for k in extras_rows[0]}
+        return {"expl": torch.stack(expl), "num": torch.stack(num), "und": torch.stack(und),
+                "strike": as_t(strike), "is_prod": as_t(is_prod, torch.bool), "extras": extras,
+                "prod_rows": prod_rows, "exp_rows": exp_rows}
+
+    @staticmethod
+    def _event(tables, e):
+        """Row ``e`` of every table: ([P, N] expl, num, und; [P] strike,
+        is_prod; extras {name: [P, ...]} or None)."""
+        extras = tables["extras"]
+        return (tables["expl"][:, e], tables["num"][:, e], tables["und"][:, e],
+                tables["strike"][:, e], tables["is_prod"][:, e],
+                None if extras is None else {k: v[:, e] for k, v in extras.items()})
+
+    def _scan_step(self, rep: Product, state, und, expl, num, strike, coeffs, extras_e):
+        args = (self.regression_function, state, und, expl, num, strike, coeffs)
+        return rep.scan_exercise_step(*args) if extras_e is None else rep.scan_exercise_step(
+            *args, extras_e)
+
+    def _exercise_backward_scan(self, products: Sequence[Product], num_paths: int, tables):
+        """The LSM fit of a bucket, last event first (controller.py:555-594):
+        coeffs [P, E, S, deg].  The carry [P, N, S] holds each hypothetical
+        state's future cashflows."""
+        rep = products[0]
+        num_events = tables["expl"].shape[1]
+        state0 = self._initial_hypothetical_state(rep, num_paths).expand(
+            len(products), -1, -1)
+        carry = torch.zeros((len(products), num_paths, rep.get_num_states()), dtype=real_dtype(),
+                            device=self.device)
+        coeffs_all = [None] * num_events
+        for e in reversed(range(num_events)):
+            expl, num, und, strike, is_prod, extras_e = self._event(tables, e)
+            basis = self.regression_function.get_regression_matrix(expl)
+            weights = rep.scan_regression_weights(und, strike)
+            if weights is not None:
+                # exposure-only rows carry dummy underlying values: the
+                # all-path fit there (weights only shape exercise decisions)
+                weights = torch.where(is_prod[:, None], weights, torch.ones_like(weights))
+            coeffs = fit_least_squares(basis, num[..., None] * carry, weights=weights)
+            next_state, cfs = self._scan_step(rep, state0, und, expl, num, strike, coeffs,
+                                              extras_e)
+            updated = cfs + rep.lookup_state_values(carry, next_state)
+            carry = torch.where(is_prod[:, None, None], updated, carry)
+            coeffs_all[e] = coeffs
+        return torch.stack(coeffs_all, dim=1)
+
+    def _exercise_forward_scan(self, products: Sequence[Product], num_paths: int, coeffs_all,
+                               tables, want_exposures: bool, want_states: bool = False):
+        """The valuation of a bucket, first event first (controller.py:616-651):
+        (cashflows [P, N], continuation exposures [P, E, N] or None, realized
+        states [P, E, N] or None)."""
+        rep = products[0]
+        state = self._initial_state(rep, (len(products), num_paths, 1))
+        cfs = torch.zeros((len(products), num_paths), dtype=real_dtype(), device=self.device)
+        exposures, states = [], []
+        for e in range(tables["expl"].shape[1]):
+            expl, num, und, strike, is_prod, extras_e = self._event(tables, e)
+            coeffs = coeffs_all[:, e]
+            next_state, step_cfs = self._scan_step(rep, state, und, expl, num, strike, coeffs,
+                                                   extras_e)
+            state = torch.where(is_prod[:, None, None], next_state, state)
+            cfs = cfs + torch.where(is_prod[:, None], step_cfs[..., 0],
+                                    torch.zeros_like(step_cfs[..., 0]))
+            if want_exposures:
+                continuation = rep.compute_continuation_values(
+                    explanatory=expl, regression_function=self.regression_function,
+                    state_matrix=state, coeffs_all_states=coeffs)[..., 0]
+                exposures.append(continuation / num)
+            if want_states:
+                states.append(state[..., 0])
+        return (cfs, torch.stack(exposures, dim=1) if want_exposures else None,
+                torch.stack(states, dim=1) if want_states else None)
+
+    def _fit_exercise_bucket(self, products: Sequence[Product], resolved):
+        """The bucket's fit on pre-simulation paths (controller.py:791-806):
+        coeffs [P, E, S, deg]; each product's ``regression_coeffs`` are its
+        own dates' rows."""
+        tables = self._exercise_event_tables(products, resolved, self.num_paths_presim)
+        coeffs = self._exercise_backward_scan(products, self.num_paths_presim, tables)
+        for i, product in enumerate(products):
+            product.regression_coeffs = self._take_rows(coeffs[i], tables["prod_rows"][i])
+        return coeffs
+
+    @staticmethod
+    def _take_rows(x, rows: np.ndarray):
+        """``x[rows]`` along the first axis."""
+        return x.index_select(0, torch.as_tensor(rows, device=x.device))
+
+    def _evaluate_exercise_bucket(self, products: Sequence[Product], coeffs, resolved):
+        """The bucket on main-simulation paths (controller.py:808-873):
+        (cashflows [P, N], exposure profiles [P, T_exp, N] or None)."""
+        n = self.num_paths_mainsim
+        tables = self._exercise_event_tables(products, resolved, n)
+        want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
+        cfs, exposures, _ = self._exercise_forward_scan(products, n, coeffs, tables, want)
+        if want:
+            rows = torch.as_tensor(np.stack(tables["exp_rows"]), device=self.device)  # [P, T_exp]
+            exposures = torch.gather(exposures, 1, rows[:, :, None].expand(-1, -1, n))
+        return cfs, exposures
+
+    def simulate_exercise_states(self, product: Product) -> np.ndarray:
+        """Realized states [len(product timeline), N] of one exercise product
+        under its LSM policy (controller.py:677-723): the pre-simulation fit
+        and the main-simulation forward scan of this product alone, on the
+        paths ``run_simulation`` draws (kernel route included)."""
+        if not self._supports_exercise_scan(product):
+            raise ValueError(f"{type(product).__name__} has no scan-executor path")
+        self._ensure_plan()
+        params = self.model.initial_params(device=self.device, dtype=real_dtype())
+        with torch.no_grad():
+            pre = self._simulate_and_resolve(params, self.num_paths_presim, rng.PHASE_PRESIM)
+            tables = self._exercise_event_tables([product], pre, self.num_paths_presim)
+            coeffs = self._exercise_backward_scan([product], self.num_paths_presim, tables)
+            del pre
+            main = self._simulate_and_resolve(params, self.num_paths_mainsim, rng.PHASE_MAINSIM)
+            tables = self._exercise_event_tables([product], main, self.num_paths_mainsim)
+            _, _, states = self._exercise_forward_scan([product], self.num_paths_mainsim, coeffs,
+                                                       tables, False, want_states=True)
+        return self._take_rows(states[0], tables["prod_rows"][0]).cpu().numpy()
+
+    # -- valuation (controller.py:877-1173) ---------------------------------------
+
+    def _evaluate_product(self, product: Product, params, resolved, exposure_coeffs):
+        """The per-date unrolled path: (numeraire-deflated cashflows [N],
+        exposure profiles [E, N] or None)."""
         num_paths = self.num_paths_mainsim
         dtype = real_dtype()
-        state_matrix = torch.full((num_paths, 1), product.get_initial_state(), dtype=torch.long,
-                                  device=self.device)
+        state_matrix = self._initial_state(product, (num_paths, 1))
         cfs = torch.zeros((num_paths,), dtype=dtype, device=self.device)
         exposures = []
         product_timeline = product.product_timeline
@@ -414,8 +688,6 @@ class SimulationController:
             return cfs, None
 
         analytic = self._can_use_analytic_exposure_for_product(product)
-        zeros = torch.zeros((self.regression_function.get_degree(),), dtype=dtype,
-                            device=self.device)
         for t in self.exposure_timeline:
             state_matrix, cfs, t_start = advance(t, state_matrix, cfs, t_start)
             numeraire = resolved[0][self.numeraire_requests[(t, "numeraire")].handle]
@@ -425,13 +697,11 @@ class SimulationController:
                     exposure_time=t, spot=spot, numeraire=numeraire, model=self.model,
                     params=params)
             else:
-                coeffs = coeffs_by_date.get(self._exposure_time_to_idx[t])
-                if coeffs is None:  # after the product's last cashflow
-                    coeffs = zeros.expand(product.get_num_states(), -1)
                 continuation = product.compute_continuation_values(
                     explanatory=torch.broadcast_to(spot, (num_paths,)),
                     regression_function=self.regression_function,
-                    state_matrix=state_matrix, coeffs_all_states=coeffs)[:, 0]
+                    state_matrix=state_matrix,
+                    coeffs_all_states=exposure_coeffs[self._exposure_time_to_idx[t]])[:, 0]
                 exposure = continuation / numeraire
             exposures.append(torch.broadcast_to(exposure, (num_paths,)))
         if self.risk_metrics.requires_discounted_cashflows():
@@ -465,34 +735,64 @@ class SimulationController:
                                            model=self.model))
         return results
 
-    def _evaluate_products(self, params, resolved, coeffs):
-        num_ns = len(self.netting_sets)
-        cfs_acc = [torch.zeros((self.num_paths_mainsim,), dtype=real_dtype(), device=self.device)
-                   for _ in range(num_ns)]
+    def _evaluate_products(self, params, resolved, fits):
+        """Every product into its netting set: the exercise buckets reduced
+        by one ``index_add`` each (controller.py:1084-1133), the other
+        products one by one."""
+        num_ns, n = len(self.netting_sets), self.num_paths_mainsim
+        cfs_acc = torch.zeros((num_ns, n), dtype=real_dtype(), device=self.device)
         exp_acc: List[Optional[torch.Tensor]] = [None] * num_ns
+        done = set()
+        for products, coeffs in fits["buckets"]:
+            cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
+            ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
+            seg = torch.as_tensor(ns_of, device=self.device)
+            cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
+            if exp_p is not None:
+                exp_ns = torch.zeros((num_ns,) + exp_p.shape[1:], dtype=exp_p.dtype,
+                                     device=self.device).index_add(0, seg, exp_p)
+                for ns_idx in sorted(set(ns_of)):
+                    exp_acc[ns_idx] = (exp_ns[ns_idx] if exp_acc[ns_idx] is None
+                                       else exp_acc[ns_idx] + exp_ns[ns_idx])
+            done.update(p.product_id for p in products)
+        cfs_rows = list(cfs_acc.unbind(0))
         for prod_idx, product in enumerate(self.products):
+            if product.product_id in done:
+                continue
             ns_idx = self.product_to_netting_set_idx[prod_idx]
             cfs, exposures = self._evaluate_product(product, params, resolved,
-                                                    coeffs.get(product.product_id, {}))
-            cfs_acc[ns_idx] = cfs_acc[ns_idx] + cfs
+                                                    fits["exposure"].get(product.product_id))
+            cfs_rows[ns_idx] = cfs_rows[ns_idx] + cfs
             if exposures is not None:
                 exp_acc[ns_idx] = exposures if exp_acc[ns_idx] is None else exp_acc[ns_idx] + exposures
-        return [self._evaluate_netting_set(i, ns, cfs_acc[i], exp_acc[i], resolved)
+        if self.risk_metrics.requires_exposure_profiles():
+            zeros = torch.zeros((len(self.exposure_timeline), n), dtype=real_dtype(),
+                                device=self.device)
+            exp_acc = [zeros if e is None else e for e in exp_acc]
+        return [self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved)
                 for i, ns in enumerate(self.netting_sets)]
 
+    def _fit_regressions(self, params, resolved_pre):
+        """Every fit on the pre-simulation (controller.py:1413-1432): the
+        exercise buckets' scans and the per-product exposure fits."""
+        buckets, plain = self._exercise_scan_groups()
+        fits = {"buckets": [(b, self._fit_exercise_bucket(b, resolved_pre)) for b in buckets],
+                "exposure": {}}
+        for product in plain:
+            fits["exposure"][product.product_id] = self._perform_regression_for_product(
+                product, params, resolved_pre)
+        return fits
+
     def _compute(self, params, kernel_noise=None):
-        coeffs = {}
+        fits = {"buckets": [], "exposure": {}}
         if self.requires_regression:
             resolved_pre = self._simulate_and_resolve(params, self.num_paths_presim,
                                                       rng.PHASE_PRESIM, kernel_noise)
-            for product in self.products:
-                if self._product_requires_regression(product):
-                    coeffs[product.product_id] = self._perform_regression_for_product(
-                        product, params, resolved_pre)
+            fits = self._fit_regressions(params, resolved_pre)
             del resolved_pre  # free the pre-simulation before the main one
         resolved = self._simulate_and_resolve(params, self.num_paths_mainsim,
                                               rng.PHASE_MAINSIM, kernel_noise)
-        return self._evaluate_products(params, resolved, coeffs)
+        return self._evaluate_products(params, resolved, fits)
 
     @staticmethod
     def _flatten(nested):
@@ -547,12 +847,7 @@ class SimulationController:
 
     def run_simulation(self) -> SimulationResults:
         t0 = time.perf_counter()
-        if self._plan is None:
-            self._plan = RequestPlan(self.model)
-            self._plan.collect_and_index_requests(
-                self.products, self.simulation_timeline, self._get_requests(),
-                self.metric_exposure_timeline,
-            )
+        self._ensure_plan()
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
 
         t1 = time.perf_counter()

@@ -1,9 +1,8 @@
 """Product base class: timelines, request declaration, valuation hooks.
 
 Counterpart of ``montecarlo_risk_engine_tpu/products/base.py``: request
-bookkeeping, the valuation protocol and the LSM continuation-value helpers
-the exposure profiles use (the scan protocol of exercise products is not
-ported yet).
+bookkeeping, the valuation protocol, the LSM continuation-value helpers and
+the scan protocol of the exercise products.
 
   * ``compute_normalized_cashflows`` returns cashflows already divided by the
     pathwise numeraire, so everything is discounted to t = 0.
@@ -12,6 +11,8 @@ ported yet).
     European-style products) are static float tuples.
   * ``params`` (model parameters) is threaded through every valuation method
     so autograd reaches them.
+  * The state helpers take leading batch dimensions: the controller runs a
+    bucket of exercise products as one [P, N, S] state tensor.
 """
 
 from __future__ import annotations
@@ -67,6 +68,10 @@ class Product:
         self.modeling_timeline: Tuple[float, ...] = ()
         self.regression_timeline: Tuple[float, ...] = ()
 
+        # Set by the controller's fit on the pre-simulation, read by the
+        # per-date exercise step: [len(regression_timeline), num_states, degree]
+        self.regression_coeffs = None
+
     # -- request declaration (product.py:59-88) -----------------------------
 
     def get_atomic_requests(self) -> Dict[Tuple[int, str], List[AtomicRequest]]:
@@ -113,15 +118,15 @@ class Product:
 
     def lookup_state_values(self, values_by_state, state_matrix):
         """Per-state values at the given integer states (product.py:150-155):
-        values_by_state [N, S], state_matrix [N, K]."""
-        if values_by_state.shape[1] == 1 and state_matrix.shape[1] == 1:
+        values_by_state [..., N, S], state_matrix [..., N, K]."""
+        if values_by_state.shape[-1] == 1 and state_matrix.shape[-1] == 1:
             return values_by_state  # single-state products: the identity
-        return torch.gather(values_by_state, 1, state_matrix.long())
+        return torch.gather(values_by_state, -1, state_matrix.long())
 
     # -- continuation values (product.py:157-184) -----------------------------
 
     def evaluate_regression_grid(self, explanatory, regression_function, coeffs_all_states):
-        """[N, S] continuation values: basis(x) @ coeffs[S, deg].T."""
+        """[..., N, S] continuation values: basis(x [..., N]) @ coeffs[..., S, deg].T."""
         return regression_function.get_regression_matrix(explanatory) @ coeffs_all_states.mT
 
     def compute_continuation_values(self, explanatory, regression_function, state_matrix,
@@ -152,6 +157,25 @@ class Product:
         """Per product-date step: returns (next_state_matrix, cashflows[N, S]),
         cashflows already numeraire-deflated (product.py:190-198)."""
         raise NotImplementedError
+
+    # -- scan protocol of the exercise products (product.py scan hooks) ----------
+
+    def scan_event_extras(self):
+        """Optional dict of [num_product_dates, ...] arrays of per-date static
+        parameters read by ``scan_exercise_step`` (Storage: volume windows,
+        ramp curves, costs).  None when unused."""
+        return None
+
+    def scan_regression_weights(self, underlying_value, strike):
+        """Optional per-path LSM fit weights (in-the-money masks).  None: the
+        reference's unweighted all-path fit."""
+        return None
+
+    def scan_bucket_statics(self):
+        """Static attributes of ``scan_exercise_step`` (payoff sign, gating
+        flags).  Products returning a hashable tuple share a bucket with
+        signature-identical peers; None keeps the product alone."""
+        return None
 
     # -- analytic hooks (product.py:200-217) --------------------------------------
 

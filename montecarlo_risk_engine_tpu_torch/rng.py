@@ -109,6 +109,21 @@ def substep_draws(seed: int, phase: int, counter: int, num_paths: int,
     return z_s, z_v, uniform_from_word(w2, dtype)
 
 
+def bridge_uniforms(product_id: int, barrier_idx: int, num_paths: int, num_intervals: int,
+                    dtype: torch.dtype, device) -> torch.Tensor:
+    """[num_paths, num_intervals] uniforms of a barrier's Brownian-bridge
+    crossing test: word 0 of the Philox call at counter (product id, barrier
+    index, path, interval) under key (0, PHASE_BRIDGE).  The stream is
+    keyed by seed 0, not by the run's root seed, as the JAX package keys its
+    bridge stream by ``root_key(0)`` (barrier_option.py:189)."""
+    paths = torch.arange(num_paths, dtype=torch.int64, device=device)[:, None]
+    intervals = torch.arange(num_intervals, dtype=torch.int64, device=device)[None, :]
+    word = lambda v: torch.full((), int(v) & _MASK32, dtype=torch.int64, device=device)
+    w0, _, _, _ = philox4x32_10((word(product_id), word(barrier_idx), paths, intervals),
+                                (0, PHASE_BRIDGE))
+    return uniform_from_word(w0.expand(num_paths, num_intervals), dtype)
+
+
 def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim: int,
                     dtype: torch.dtype, device) -> torch.Tensor:
     """``sim_dim`` standard normals for one substep of every path, [N, sim_dim].

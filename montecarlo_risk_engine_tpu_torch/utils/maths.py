@@ -3,13 +3,14 @@
 ``symmetric_linear_smoothing`` is the hard ``(x > 0)`` indicator when
 smoothing is off and the linear ramp ``clamp((x + eps) / (2 eps), 0, 1)``
 when on (reference maths.py:3-6).  Widths: default 0.05, Heston QE 0.3 for
-the mass-at-zero indicator and 0.5 for the psi-switch (heston.py:227-236).
-``is_fuzzy`` is a plain Python bool, set once when differentiation is
-enabled (reference model.py:83-90).
+the mass-at-zero indicator and 0.5 for the psi-switch (heston.py:227-236),
+binary options 1.0 (binary_option.py:38).  ``is_fuzzy`` is a plain Python
+bool, set once when differentiation is enabled (reference model.py:83-90).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,9 +27,28 @@ def compute_degree_of_truth(x: torch.Tensor, is_fuzzy: bool, eps: float = 0.05) 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """Piecewise-linear interpolation with flat extrapolation at both ends,
     the arithmetic of ``jnp.interp``: f = fp[i-1] + ((x - xp[i-1]) / dx) df
-    on the segment i = clip(searchsorted(xp, x, right), 1, len - 1)."""
-    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[0] - 1)
-    dx = xp[i] - xp[i - 1]
-    f = fp[i - 1] + ((x - xp[i - 1]) / dx) * (fp[i] - fp[i - 1])
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    on the segment i = clip(searchsorted(xp, x, right), 1, K - 1), and
+    fp[i-1] where |dx| is below the spacing of the dtype's epsilon.  A
+    one-point curve gives i = 0 and i - 1 wraps to the last point, as a
+    negative index does in ``jnp.interp``: the curve's one value everywhere.
+
+    ``xp``, ``fp``: [K], or [*B, K] for a batch of curves (the storage
+    bucket's per-product curves); ``x``: any shape, or [*B, ...] with the
+    batch dimensions leading."""
+    k = xp.shape[-1]
+    batch = xp.shape[:-1]
+    flat = x.reshape(*batch, -1).contiguous() if batch else x.contiguous()
+    i = torch.clamp(torch.searchsorted(xp.contiguous(), flat, right=True), 1, k - 1)
+    i0 = torch.remainder(i - 1, k)
+    take = (lambda a, j: torch.gather(a, -1, j)) if batch else (lambda a, j: a[j])
+    xp0, xp1, fp0, fp1 = take(xp, i0), take(xp, i), take(fp, i0), take(fp, i)
+    dx = xp1 - xp0
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float64 if xp.dtype == torch.float64
+                                                 else np.float32).eps))
+    f = torch.where(dx0, fp0, fp0 + ((flat - xp0) / torch.where(dx0, torch.ones_like(dx), dx))
+                    * (fp1 - fp0))
+    first = xp[..., :1] if batch else xp[0]
+    last = xp[..., -1:] if batch else xp[-1]
+    f = torch.where(flat < first, fp[..., :1] if batch else fp[0], f)
+    f = torch.where(flat > last, fp[..., -1:] if batch else fp[-1], f)
+    return f.reshape(x.shape)

@@ -1,13 +1,17 @@
-"""Regression bases and the least-squares fit of the LSM exposures.
+"""Regression bases and the least-squares fit of the LSM regressions.
 
 Counterpart of ``montecarlo_risk_engine_tpu/utils/regression.py``: the
 monomial basis and ``fit_least_squares`` by normal equations with column
-equilibration and a scale-relative ridge.  The JAX package reduces the path
-axis in a fixed pairwise order (``fixed_tree_sum``) for its sharding
-determinism contract; the port runs on one card and uses ``torch.sum``.
+equilibration, optional per-path weights and a scale-relative ridge.  The
+JAX package reduces the path axis in a fixed pairwise order
+(``fixed_tree_sum``) for its sharding determinism contract; the port runs on
+one card and uses ``torch.sum``.  Both take leading batch dimensions, so a
+bucket of products fits in one batched solve.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,30 +29,37 @@ class RegressionFunction:
 
 
 class PolynomialRegression(RegressionFunction):
-    """Monomial basis [1, x, x^2, ...] (reference regression.py:10-15)."""
+    """Monomial basis [1, x, x^2, ...] along a new last axis (reference
+    regression.py:10-15)."""
 
     def get_regression_matrix(self, explanatory):
-        return torch.stack([explanatory ** k for k in range(self.degree + 1)], dim=1)
+        return torch.stack([explanatory ** k for k in range(self.degree + 1)], dim=-1)
 
 
-def fit_least_squares(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """``argmin ||A c - Y||^2`` for A [N, deg], Y [N, S] (or [N]); returns
-    coeffs [S, deg] (regression.py:45-96).
+def fit_least_squares(A: torch.Tensor, Y: torch.Tensor, ridge_rel: Optional[float] = None,
+                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``argmin sum_n w_n (A c - Y)_n^2`` for A [..., N, deg], Y [..., N, S]
+    (or [..., N]) and optional weights [..., N]; returns coeffs [..., S, deg]
+    (regression.py:45-96).
 
-    Columns are scaled to unit RMS before the Gram solve, and a ridge of
-    ~1e3 machine epsilons (1e-10 in float64, 1e-4 in float32) times the mean
-    Gram diagonal keeps degenerate bases (a constant explanatory at t = 0)
-    solvable.  The solve reports no error
-    for a singular system, as XLA's does not."""
-    if Y.dim() == 1:
-        Y = Y[:, None]
-    n, deg = A.shape
-    col_scale = torch.clamp(torch.sqrt(torch.sum(A * A, dim=0) / n), min=1e-30)
-    A_s = A / col_scale[None, :]
-    gram = torch.stack([torch.sum(A_s[:, d:d + 1] * A_s, dim=0) for d in range(deg)])
-    ridge_rel = 1e-10 if torch.finfo(A.dtype).bits >= 64 else 1e-4
-    scale = torch.diagonal(gram).sum() / deg
-    gram = gram + (ridge_rel * scale + 1e-30) * torch.eye(deg, dtype=A.dtype, device=A.device)
-    rhs = torch.stack([torch.sum(A_s[:, d:d + 1] * Y, dim=0) for d in range(deg)])
+    Columns are scaled to unit RMS before the Gram solve (weighted normal
+    equations A'WA c = A'WY), and a ridge of ``ridge_rel`` (default ~1e3
+    machine epsilons: 1e-10 in float64, 1e-4 in float32) times the mean Gram
+    diagonal keeps degenerate bases (a constant explanatory at t = 0)
+    solvable.  The solve reports no error for a singular system, as XLA's
+    does not."""
+    if Y.dim() == A.dim() - 1:
+        Y = Y[..., None]
+    n, deg = A.shape[-2:]
+    col_scale = torch.clamp(torch.sqrt(torch.sum(A * A, dim=-2) / n), min=1e-30)
+    A_s = A / col_scale[..., None, :]
+    A_w = A_s if weights is None else A_s * weights[..., None]
+    gram = torch.stack([torch.sum(A_w[..., d:d + 1] * A_s, dim=-2) for d in range(deg)], dim=-2)
+    if ridge_rel is None:
+        ridge_rel = 1e-10 if torch.finfo(A.dtype).bits >= 64 else 1e-4
+    scale = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) / deg
+    eye = torch.eye(deg, dtype=A.dtype, device=A.device)
+    gram = gram + (ridge_rel * scale + 1e-30)[..., None, None] * eye
+    rhs = torch.stack([torch.sum(A_w[..., d:d + 1] * Y, dim=-2) for d in range(deg)], dim=-2)
     coeffs = torch.linalg.solve_ex(gram, rhs).result
-    return (coeffs / col_scale[:, None]).mT
+    return (coeffs / col_scale[..., :, None]).mT

@@ -137,13 +137,19 @@ def test_kernel_selection_rule():
 
 
 def test_unported_features_raise():
-    # Thresholds and MPoR collateral are ported; early exercise is not.
+    # Thresholds, MPoR collateral and early exercise are ported; the analytic
+    # PV evaluation is not.
     assert mt.NettingSet(name="x", products=[object()], threshold=1.0).threshold == 1.0
     assert mt.NettingSet(name="x", products=[object()], margin_period_of_risk=0.1).is_collateralized()
     model, netting_sets = slice_book(mt)
     netting_sets[0].products[0].regression_timeline = (0.05,)
+    c = mt.SimulationController(netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), 64, 64,
+                                NUM_STEPS, mt.SimulationScheme.QE, device="cpu")
+    assert c.requires_regression  # a regression timeline asks for the presim fit
+    model, netting_sets = slice_book(mt)
+    analytic = mt.PVMetric(evaluation_type=mt.Metric.EvaluationType.ANALYTICAL)
     with pytest.raises(NotImplementedError):
-        mt.SimulationController(netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), 64, 64,
+        mt.SimulationController(netting_sets, model, mt.RiskMetrics([analytic]), 64, 0,
                                 NUM_STEPS, mt.SimulationScheme.QE, device="cpu")
 
 
