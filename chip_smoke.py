@@ -30,7 +30,17 @@ plain PyTorch version:
     against a CRR tree, barriers, binary and FlexiCall against closed forms,
     Asian call-put parity) on Black-Scholes, storage against a DP oracle on
     Schwartz-2F; and the CVA book of ``benchmarks/cva_large_book.py`` at
-    scale 0.05 (a ModelConfig of BS-multi and CIR++, EULER).
+    scale 0.05 (a ModelConfig of BS-multi and CIR++, EULER);
+  * Hessians (``compute_higher_derivatives``), each on the kernel route and
+    the engine route: the Heston book at full size (K1 emitted draws,
+    forward branch), a Black-Scholes call (K2 bs exact; the JAX package's
+    TPU-only test, tests/test_pallas_controller_tpu.py:195-240), the BS-multi
+    book at its differentiated size (K2 bs_multi exact, reverse branch) and
+    the north-star book cut in depth to 2^17 main and 2^17 presim paths
+    (``HESS_NS_PATHS``; 1e6 would keep the smoke past its time, each row's
+    peak memory is printed for the full-width run still to make); and the
+    analytic route (EvaluationType.ANALYTICAL, gamma and vomma against the
+    closed forms).
 
 Phases:
 
@@ -65,13 +75,31 @@ Phases:
      then the mixed book (forward cold and warm; one netting set per
      family differentiated on both routes: the book's PV 1e-4, its
      jacobian rtol 1e-3, the families that miss printed), the product
-     oracles, the storage scenarios and the storage scan against its
-     unrolled path, and the CVA book (kernel vs engine route 1e-4), each
-     with its counts from 0;
-  8. profile the BS-multi book and the mixed book's forward run (after all
-     the walls: a profiler run slows the launches that follow it);
+     oracles (the down-and-out barrier against the textbook closed form
+     within max(6 SE, 1 %)), the storage scenarios and the storage scan
+     against its unrolled path, and the CVA book (kernel vs engine route
+     1e-4), each with its counts from 0;
+  7c. in a second process on the same card (``--hessians-only``), started
+     before 7b and run beside it, its output printed after 7b: Hessians,
+     each with its counts from 0 (exactly one K1 or K2 launch,
+     and one prologue launch, per simulation phase for the whole run): the
+     Heston, BS-multi and north-star books, kernel route against the engine
+     route on the kernel's own draws (rtol 1e-3, atol 1e-6, every metric),
+     symmetric to 1e-8; the BS call's pathwise gamma exactly 0, its vomma
+     and cross term against the engine at half the paths, and the engine on
+     the same stream and paths within rtol 1e-3; the Hessian walls, peak
+     memory and each row's wall and peak printed; the analytic route's
+     gamma and vomma against the closed forms to 1e-9;
+  8. profile the BS-multi book and the forward run of the mixed book at
+     scale 0.1 (after all the walls: a profiler run slows the launches that
+     follow it);
   9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
+
+The Hessian rows are host-bound (second-order forward mode dispatches
+every op through two tangent levels), so 7c takes ~7 minutes of host time;
+run beside 7b, whose books are host-bound too, it leaves the smoke inside
+its time limit (the walls of both carry the other's load on the card).
 
 ``--split-only`` runs only the call / launch-only / wrapper split of K1
 and K2 at the main paths' shapes, the warm walls of the three books and
@@ -83,7 +111,7 @@ turns, in one call).
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
-    python3 chip_smoke.py [--split-only]
+    python3 chip_smoke.py [--split-only | --hessians-only]
 """
 
 from __future__ import annotations
@@ -188,12 +216,12 @@ def slice_book():
     return model, netting_sets
 
 
-def controller(differentiate: bool, use_kernel="auto"):
+def controller(differentiate: bool, use_kernel="auto", noise_source=None):
     model, netting_sets = slice_book()
     return mt.SimulationController(
         netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), NUM_PATHS, 0, NUM_STEPS,
         mt.SimulationScheme.QE, differentiate=differentiate, root_seed=SEED,
-        use_kernel=use_kernel, device="cuda",
+        use_kernel=use_kernel, device="cuda", noise_source=noise_source,
     ), model, netting_sets
 
 
@@ -212,7 +240,8 @@ def live_substeps(timeline, steps: int) -> int:
     return n
 
 
-def north_star(num_paths: int, differentiate: bool, use_kernel="auto", num_paths_presim=None):
+def north_star(num_paths: int, differentiate: bool, use_kernel="auto", num_paths_presim=None,
+               grad_chunk_size: int = 8, noise_source=None):
     """The north-star book (benchmarks/north_star.py:47-96) on the card."""
     model = mt.ModelConfig(
         [mt.VasicekModel(0.0, rate=0.03, mean=0.045, mean_reversion_speed=0.3, volatility=0.012,
@@ -238,7 +267,8 @@ def north_star(num_paths: int, differentiate: bool, use_kernel="auto", num_paths
     return mt.SimulationController(
         [netting_set], model, metrics, num_paths,
         num_paths if num_paths_presim is None else num_paths_presim, 1, mt.SimulationScheme.EULER,
-        differentiate=differentiate, grad_chunk_size=8, use_kernel=use_kernel, device="cuda")
+        differentiate=differentiate, grad_chunk_size=grad_chunk_size, use_kernel=use_kernel,
+        device="cuda", noise_source=noise_source)
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -721,6 +751,251 @@ def north_star_main_path():
     return launches
 
 
+# -- second-order sensitivities --------------------------------------------------------
+
+HESS_NS_PATHS = 1 << 17  # north-star Hessian depth (main and presim paths), cut from 1e6
+HESS_BS_PATHS = (1 << 18, 1 << 17)  # tests/test_pallas_controller_tpu.py:195-240: kernel, engine
+
+
+def hessians(results):
+    """{(netting set, metric, evaluation): [P, P]} of a run's Hessians."""
+    names = results.get_model_param_names()
+    out = {}
+    for ns in results.get_netting_set_names():
+        for metric in results.get_metric_names():
+            for k in range(len(results.get_results(ns, metric))):
+                out[ns, metric, k] = np.array([[
+                    results.get_second_derivatives(ns, metric, param1=a, param2=b,
+                                                   evaluation_idx=k) for b in names]
+                    for a in names], dtype=float)
+    return out
+
+
+def hessian_checks(label, kernel, engine, rtol=1e-3, atol=1e-6):
+    """Kernel-route Hessians against an engine route's, and the kernel
+    route's symmetry to 1e-8 relative."""
+    hk, he = hessians(kernel), hessians(engine)
+    check(hk.keys() == he.keys() and len(hk) > 0, f"{label}: Hessian keys differ")
+    worst_rel, worst_sym = 0.0, 0.0
+    for key, h in hk.items():
+        check(bool(np.isfinite(h).all()), f"{label} {key}: non-finite Hessian")
+        scale = max(float(np.abs(h).max()), 1e-300)
+        worst_sym = max(worst_sym, float(np.abs(h - h.T).max()) / scale)
+        worst_rel = max(worst_rel, float(np.max(np.abs(h - he[key])
+                                                / np.maximum(np.abs(he[key]), atol))))
+        np.testing.assert_allclose(h, he[key], rtol=rtol, atol=atol, err_msg=f"{label} {key}")
+    print(f"  {label}: kernel vs engine Hessian max rel err {worst_rel:.3e} ({len(hk)} "
+          f"evaluations; rtol {rtol}, atol {atol}); symmetry max rel {worst_sym:.3e}")
+    check(worst_sym <= 1e-8, f"{label}: Hessian not symmetric ({worst_sym:.3e})")
+
+
+def hessian_run(label, c, rows=None):
+    """One Hessian run of a differentiated controller: (results, wall s,
+    peak GiB).  ``rows`` collects each Hessian row's (wall s, peak GiB)."""
+    c.compute_higher_derivatives()
+    if rows is not None:
+        row = c._hessian_row
+
+        def measured_row(*args):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = row(*args)
+            torch.cuda.synchronize()
+            rows.append((time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30))
+            return out
+
+        c._hessian_row = measured_row
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = c.run_simulation()
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    check(len(results.second_derivatives) > 0, f"{label}: no Hessian returned")
+    print(f"[{label}] Hessian run wall {wall:.4f} s ({c._grad_mode_resolved} branch, P = "
+          f"{len(c.model.get_model_param_names())}), peak memory {peak:.2f} GiB")
+    return results, wall, peak
+
+
+def capture_draws(c):
+    """{phase: frozen draws} that a kernel-route run of ``c`` computes,
+    recorded as the run makes them (no launch of its own)."""
+    draws = {}
+    compute = c._kernel_noise_of
+
+    def record(params):
+        draws.update(compute(params))
+        return draws
+
+    c._kernel_noise_of = record
+    return draws
+
+
+def draws_source(c, draws):
+    """{phase: counter -> (z, u)}: the engine's noise source that feeds it
+    the kernel route's frozen draws of ``c`` (K1's emitted draws, or the
+    standard normals recovered from K2's states): the engine counter of
+    sub-step k of point p reads the dense step of that sub-step."""
+    _, orig_idx = dense_timeline(c.model.calibration_date, c.simulation_timeline, c.num_steps)
+    first = [int(i) - c.num_steps + 1 for i in orig_idx]
+
+    def source(noise):
+        z, u = noise if isinstance(noise, tuple) else (noise, None)
+
+        def at(counter):
+            point, k = divmod(counter, c.num_steps)
+            i = first[point] + k
+            return z[i], None if u is None else u[i]
+
+        return at
+
+    return {phase: source(noise) for phase, noise in draws.items()}
+
+
+def hessian_routes(label, make):
+    """The Hessian of one book on the kernel route (counts read just after
+    its run, each row's wall and peak printed) and on the engine route fed
+    the kernel's own draws (the Philox stream at the kernel's rounding),
+    held to rtol 1e-3, atol 1e-6 on every metric.  (The engine's own float64
+    draws differ from the kernel's by their rounding, and second pathwise
+    derivatives are heavy-tailed: a few Heston paths near v = 0 carry per-path
+    vol-of-vol terms of 1e5 against a mean of -2.5, so the two streams' gap
+    measures that tail, not the route: PERF.md section 6.)
+    ``make(use_kernel, noise_source)`` builds the controller.  Returns the
+    kernel route's results and launches (K1's, K1's emitting ones, K2's and
+    its prologue's)."""
+    kernel = make("auto", None)
+    check(kernel._kernel_active, f"{label}: not on the kernel path")
+    draws = capture_draws(kernel)
+    rows = []
+    kr, _, _ = hessian_run(f"{label}, kernel route", kernel, rows)
+    launches = (heston_qe_paths.launches, heston_qe_paths.emit_launches,
+                hybrid_paths.launches, k2_module.hybrid_table.launches)
+    print("  rows (wall s, peak GiB): " + ", ".join(f"({w:.3f}, {m:.2f})" for w, m in rows))
+    source = draws_source(kernel, draws)
+    del kernel
+    torch.cuda.empty_cache()
+    same, _, _ = hessian_run(f"{label}, engine route on the kernel's draws", make(False, source))
+    hessian_checks(label, kr, same)
+    check(launches == (heston_qe_paths.launches, heston_qe_paths.emit_launches,
+                       hybrid_paths.launches, k2_module.hybrid_table.launches),
+          f"{label}: the engine route launched a kernel")
+    del same, source, draws
+    torch.cuda.empty_cache()
+    return kr, launches
+
+
+def heston_hessian():
+    """The Heston-QE book's Hessian at full size (K1 with emitted draws,
+    forward branch, P = 7) on both routes; returns K1's launches."""
+    heston_qe_paths.launches = 0
+    heston_qe_paths.emit_launches = 0
+    kr, (launches, emits, _, _) = hessian_routes(
+        "heston hessian", lambda use_kernel, source: controller(True, use_kernel, source)[0])
+    check(launches == 1 and emits == 1,
+          f"the Heston Hessian run made {launches} K1 launches, not 1")
+    g = kr.get_second_derivatives("call_1", "pv", param1="spot", param2="spot", evaluation_idx=0)
+    print(f"  1y call: gamma {g:.6e}, d2/dspot dvariance "
+          f"{kr.get_second_derivatives('call_1', 'pv', 'spot', 'initial_variance', 0):.6f}")
+    return launches
+
+
+def bs_controller(num_paths, use_kernel):
+    """tests/test_pallas_controller_tpu.py:35-48: one ATM call on Black-Scholes."""
+    model = mt.BlackScholesModel(0.0, spot=100.0, rate=0.03, sigma=0.2, asset_id="eq")
+    option = mt.EuropeanOption(mt.Equity("eq"), 1.0, 100.0, CALL, asset_id="eq")
+    return mt.SimulationController([mt.NettingSet(name="book", products=[option])], model, PV(),
+                                   num_paths, 0, 1, mt.SimulationScheme.ANALYTICAL,
+                                   differentiate=True, root_seed=SEED, use_kernel=use_kernel,
+                                   device="cuda")
+
+
+def bs_hessian():
+    """tests/test_pallas_controller_tpu.py:195-240 on the card: the kernel
+    route (K2 bs exact) at 262,144 paths and the engine route at 131,072;
+    pathwise gamma exactly 0 on both, vomma within 0.5 + 5 %, the cross
+    term within 0.05 + 5 %; then the engine route at 262,144 paths on the
+    kernel's stream within rtol 1e-3.  Returns K2's launches."""
+    reset_k2_counts()
+    n_kernel, n_engine = HESS_BS_PATHS
+    kc = bs_controller(n_kernel, "auto")
+    check(kc._kernel_active, "the BS Hessian book is not on the kernel path")
+    kr, _, _ = hessian_run("bs european hessian, kernel route", kc)
+    launches = hybrid_paths.launches
+    check(launches == 1 and k2_module.hybrid_table.launches == 1,
+          f"the BS Hessian run made {launches} K2 launches, not 1")
+    er, _, _ = hessian_run("bs european hessian, engine route", bs_controller(n_engine, False))
+    same, _, _ = hessian_run("bs european hessian, engine route, same stream and paths",
+                             bs_controller(n_kernel, False))
+    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    h2 = lambda r, a, b: float(r.get_second_derivatives("book", "pv", a, b, evaluation_idx=0))
+    v_k, v_e = h2(kr, "volatility", "volatility"), h2(er, "volatility", "volatility")
+    x_k, x_e = h2(kr, "spot", "volatility"), h2(er, "spot", "volatility")
+    print(f"  gamma kernel {h2(kr, 'spot', 'spot')} engine {h2(er, 'spot', 'spot')}; vomma kernel "
+          f"{v_k:.6f} engine {v_e:.6f}; d2/dspot dvol kernel {x_k:.6f} engine {x_e:.6f}")
+    check(h2(kr, "spot", "spot") == 0.0 and h2(er, "spot", "spot") == 0.0,
+          "pathwise gamma of the hard call payoff is not exactly 0")
+    check(abs(v_k - v_e) < 0.5 + 0.05 * abs(v_e), f"vomma {v_k} vs {v_e}")
+    check(abs(x_k - x_e) < 0.05 + 0.05 * abs(x_e), f"d2/dspot dvol {x_k} vs {x_e}")
+    hessian_checks("bs european hessian, same stream and paths", kr, same)
+    return launches
+
+
+def bs_multi_hessian():
+    """The BS-multi European book's Hessian at its differentiated size
+    (1,000 options, K2 bs_multi exact with recovered draws, reverse branch,
+    P = 9) on both routes; returns K2's launches."""
+    reset_k2_counts()
+    _, (_, _, launches, table) = hessian_routes(
+        "bs-multi european hessian",
+        lambda use_kernel, source: euro_book(EURO_DIFF_OPTIONS, True, use_kernel, source)[0])
+    check(launches == 1 and table == 1,
+          f"the BS-multi Hessian run made {launches} K2 launches, not 1")
+    return launches
+
+
+def north_star_hessian():
+    """The north-star book's Hessian (K2 Euler vasicek, bs, cirpp; LSM fits;
+    forward branch, P = 11, one sweep of 11 tangents per row) at 2^17 main
+    and 2^17 presim paths on both routes, each row's wall and peak memory
+    printed; returns K2's launches (its table prologue's equal them).  On
+    the kernel's draws PFE is held too: both routes rank the same paths."""
+    reset_k2_counts()
+    kr, (_, _, launches, table) = hessian_routes(
+        "north-star hessian",
+        lambda use_kernel, source: north_star(HESS_NS_PATHS, True, use_kernel,
+                                              grad_chunk_size=11, noise_source=source))
+    check(launches == 2 and table == 2,
+          f"the north-star Hessian run made {launches} K2 launches, not 2 (one per phase)")
+    h = kr.get_second_derivatives("north_star", f"cva[{CP}]", "irs.rate", "irs.rate", 0)
+    print(f"  {HESS_NS_PATHS} + {HESS_NS_PATHS} presim paths; d2 CVA / d irs.rate^2 {h:.6f}")
+    return launches
+
+
+def analytic_hessian():
+    """The analytic route (tests/test_heston_and_hessian.py:65) on the card:
+    a Black-Scholes call under EvaluationType.ANALYTICAL, Hessian gamma and
+    vomma against the closed forms to 1e-9; no simulation, no launch."""
+    reset_k2_counts()
+    model = mt.BlackScholesModel(0.0, spot=100.0, rate=0.05, sigma=0.2)
+    option = mt.EuropeanOption(mt.Equity(), 2.0, 110.0, CALL)
+    c = mt.SimulationController(
+        [mt.NettingSet(name="ns", products=[option])], model,
+        mt.RiskMetrics([mt.PVMetric(evaluation_type=mt.Metric.EvaluationType.ANALYTICAL)]), 1, 0,
+        1, mt.SimulationScheme.ANALYTICAL, differentiate=True, device="cuda")
+    r, _, _ = hessian_run("analytic hessian", c)
+    params = model.initial_params(device="cpu")  # the closed forms, on the host
+    gamma = float(option.compute_dDeltadSpot_analytically(model, params))
+    vomma = float(option.compute_dVegadSigma_analytically(model, params))
+    h = lambda a: float(r.get_second_derivatives("ns", "pv", a, a, evaluation_idx=0))
+    print(f"  gamma {h('spot'):.12f} vs closed form {gamma:.12f}; vomma {h('volatility'):.12f} "
+          f"vs closed form {vomma:.12f}")
+    check(abs(h("spot") - gamma) < 1e-9 and abs(h("volatility") - vomma) < 1e-9,
+          "analytic gamma or vomma differs from the closed forms")
+    check(hybrid_paths.launches == 0, "the analytic route launched K2")
+
+
 # -- the BS-multi books and the other K2 routes --------------------------------------
 
 CALL, PUT = mt.OptionType.CALL, mt.OptionType.PUT
@@ -879,16 +1154,18 @@ def euro_options(num_options: int):
                               asset_id=ASSETS[i % 4]) for i in range(num_options)]
 
 
-def book(model, netting_sets, scheme, num_steps, differentiate=False, use_kernel="auto"):
+def book(model, netting_sets, scheme, num_steps, differentiate=False, use_kernel="auto",
+         noise_source=None):
     return mt.SimulationController(netting_sets, model, PV(), NUM_PATHS, 0, num_steps, scheme,
                                    differentiate=differentiate, root_seed=SEED,
-                                   use_kernel=use_kernel, device="cuda")
+                                   use_kernel=use_kernel, device="cuda",
+                                   noise_source=noise_source)
 
 
-def euro_book(num_options: int, differentiate=False, use_kernel="auto"):
+def euro_book(num_options: int, differentiate=False, use_kernel="auto", noise_source=None):
     products = euro_options(num_options)
     return book(bs_multi_model(), [mt.NettingSet(name="european_book", products=products)],
-                mt.SimulationScheme.ANALYTICAL, 1, differentiate, use_kernel), products
+                mt.SimulationScheme.ANALYTICAL, 1, differentiate, use_kernel, noise_source), products
 
 
 def closed_form_sum(model, products):
@@ -1333,9 +1610,13 @@ def mixed_main_path(device, issue=None):
     # counts were read: these launches are not the main path's
     row = model_rung("bs_multi exact, mixed book", fwd, device, issue)
     row["launches"] = launches
-    # the forward run only: a profiler run of the differentiated one records
-    # millions of events and takes minutes to read back
-    return row, {"mixed book forward": run_fwd}
+    # the forward run only, of the book at scale 0.1 (the same families,
+    # paths and dates): the full book's 1.76M device events took ~3 minutes
+    # to read back, and a profiler run of the differentiated one more
+    small = slice_controller(mixed_book_parts(scaled_counts(MIXED_COUNTS, 0.1)), MIXED_PATHS,
+                             MIXED_PATHS, mt.SimulationScheme.ANALYTICAL)
+    small.run_simulation()  # cold: the request plan
+    return row, {"mixed book forward, scale 0.1": small.run_simulation}
 
 
 def crr_american_put(s0, k, r, sigma, maturity, steps=2000):
@@ -1384,8 +1665,10 @@ def product_oracles():
             check(0.9 * crr < pv < crr + 4 * se, f"American put {pv} vs CRR {crr}")
 
     model = bs(0.05, 0.2)
+    # the down-and-out closed form is the textbook one (the JAX package's
+    # lacks a factor S/B), so its limit is max(6 SE, 1 %)
     for kind, strike, barrier, tol in (("UPANDOUT", 90.0, 140.0, 0.06),
-                                       ("DOWNANDOUT", 100.0, 80.0, 0.03)):
+                                       ("DOWNANDOUT", 100.0, 80.0, 0.01)):
         option = mt.BarrierOption(0.0, 1.0, strike, 101, CALL, barrier, mt.BarrierOptionType[kind],
                                   asset_id="eq")
         option.set_use_brownian_bridge()
@@ -2068,15 +2351,22 @@ def main():
 
     # 7b. the mixed PV book (a row of its own at its shapes), the product
     # oracles (bs exact) and storage (s2f exact), whose launches add to
-    # their tuples' rows, and the CVA book (the bs_multi + cirpp tuple)
-    rows["bs_multi exact, mixed book"], mixed_runs = mixed_main_path(device, issue)
-    torch.cuda.empty_cache()
-    print(f"[time] mixed book done after {time.perf_counter() - t_start:.1f} s")
-    rows["bs exact"]["launches"] += product_oracles()
-    rows["s2f exact"]["launches"] += storage_phase()
-    rows["bs_multi, cirpp euler"]["launches"] = cva_phase()
-    print(f"[time] oracles, storage and the CVA book done after {time.perf_counter() - t_start:.1f} s")
-    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
+    # their tuples' rows, and the CVA book (the bs_multi + cirpp tuple);
+    # 7c. meanwhile, in a second process on the same card, the Hessians
+    hessians = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hessians-only"],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        mixed_runs, hessian_launches = phases_beside_hessians(device, issue, rows, t_start,
+                                                              hessians)
+    finally:
+        if hessians.poll() is None:
+            hessians.kill()
+            hessians.wait()
+    k1_launches += hessian_launches["heston_qe"]
+    rows["bs exact"]["launches"] += hessian_launches["bs exact"]
+    rows["bs_multi exact"]["launches"] += hessian_launches["bs_multi exact"]
+    ns_row["launches"] += hessian_launches["north star"]
+    table_json["launches"] += hessian_launches["hybrid_table, north star"]
     k2_rows = [ns_row, *rows.values(), table_json]
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
           "a kernel of the main paths never launched")
@@ -2112,5 +2402,52 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def phases_beside_hessians(device, issue, rows, t_start, hessians):
+    """Phase 7b while the Hessian process runs: the mixed book, the product
+    oracles, storage and the CVA book, each with its counts from 0 (their
+    launches into ``rows``); then the Hessian process's output, printed, its
+    exit code checked.  Returns the mixed book's runs to profile and the
+    Hessian process's launches by row."""
+    rows["bs_multi exact, mixed book"], mixed_runs = mixed_main_path(device, issue)
+    torch.cuda.empty_cache()
+    print(f"[time] mixed book done after {time.perf_counter() - t_start:.1f} s")
+    rows["bs exact"]["launches"] += product_oracles()
+    rows["s2f exact"]["launches"] += storage_phase()
+    rows["bs_multi, cirpp euler"]["launches"] = cva_phase()
+    print(f"[time] oracles, storage and the CVA book done after {time.perf_counter() - t_start:.1f} s")
+    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
+    torch.cuda.empty_cache()
+    out, _ = hessians.communicate()
+    print(out, end="")
+    check(hessians.returncode == 0, f"the Hessian process failed (exit {hessians.returncode})")
+    print(f"[time] Hessians done after {time.perf_counter() - t_start:.1f} s")
+    return mixed_runs, json.loads(out.strip().splitlines()[-1])["hessian_launches"]
+
+
+def hessian_main():
+    """``--hessians-only`` (the smoke's second process, phase 7c): the
+    Hessian phases, each with its counts from 0 (one K1 or K2 launch, and
+    one prologue launch, per simulation phase for the whole run), then their
+    launches by row as the last line's JSON."""
+    card()
+    t0 = time.perf_counter()
+    launches = {"heston_qe": heston_hessian()}
+    torch.cuda.empty_cache()
+    launches["bs exact"] = bs_hessian()
+    launches["bs_multi exact"] = bs_multi_hessian()
+    torch.cuda.empty_cache()
+    launches["north star"] = north_star_hessian()
+    launches["hybrid_table, north star"] = k2_module.hybrid_table.launches
+    torch.cuda.empty_cache()
+    analytic_hessian()
+    print(f"[time] Hessian process: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"hessian_launches": launches}))
+
+
 if __name__ == "__main__":
-    split_main() if "--split-only" in sys.argv[1:] else main()
+    if "--split-only" in sys.argv[1:]:
+        split_main()
+    elif "--hessians-only" in sys.argv[1:]:
+        hessian_main()
+    else:
+        main()

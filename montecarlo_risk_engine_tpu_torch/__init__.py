@@ -9,15 +9,15 @@ product family: binary, Asian and barrier options, and the exercise products
 (Bermudan and American options, FlexiCall, gas storage) by Longstaff-Schwartz,
 with the Black-Scholes, BS-multi, Vasicek, CIR++ (stochastic and
 deterministic), Hull-White and Schwartz-2F models each on their own or in a
-ModelConfig, through ``SimulationController``, forward and differentiated,
-with the path kernels
+ModelConfig, through ``SimulationController``, forward, differentiated and
+with Hessians, and with analytic PV evaluation, with the path kernels
 written in CUDA for Hopper (``ops/heston_qe.py`` + ``csrc/heston_qe.cu``,
 ``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
 """
 
 from montecarlo_risk_engine_tpu_torch.api.controller import SimulationController
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
-from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, resolve_device
+from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, resolve_device, set_real_dtype
 from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
     CEMetric,
     CVAMetric,
@@ -41,7 +41,12 @@ from montecarlo_risk_engine_tpu_torch.models.schwartz_two_factor import Schwartz
 from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
 from montecarlo_risk_engine_tpu_torch.products.asian_option import AsianAveragingType, AsianOption
 from montecarlo_risk_engine_tpu_torch.products.barrier_option import BarrierOption, BarrierOptionType
-from montecarlo_risk_engine_tpu_torch.products.base import OptionType, Product, ProductFamily
+from montecarlo_risk_engine_tpu_torch.products.base import (
+    OptionType,
+    Product,
+    ProductFamily,
+    SettlementType,
+)
 from montecarlo_risk_engine_tpu_torch.products.basket_option import BasketOption, BasketOptionType
 from montecarlo_risk_engine_tpu_torch.products.bermudan_option import AmericanOption, BermudanOption
 from montecarlo_risk_engine_tpu_torch.products.binary_option import BinaryOption
@@ -53,6 +58,9 @@ from montecarlo_risk_engine_tpu_torch.products.netting_set import NettingSet
 from montecarlo_risk_engine_tpu_torch.products.storage import Storage, StorageAction
 from montecarlo_risk_engine_tpu_torch.products.storage_config import StorageConfig
 from montecarlo_risk_engine_tpu_torch.products.swap import InterestRateSwap, IRSType
-from montecarlo_risk_engine_tpu_torch.utils.regression import PolynomialRegression
+from montecarlo_risk_engine_tpu_torch.utils.regression import (
+    PolynomialRegression,
+    PolyomialRegression,
+)
 
 __all__ = [name for name in dir() if not name.startswith("_")]

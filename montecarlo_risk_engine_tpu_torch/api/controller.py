@@ -6,14 +6,21 @@ the unified simulation timeline with the internal exposure timeline (metric
 dates plus MPoR collateral query dates), the pre-simulation and the LSM
 fits of the exposure profiles, plane-mode simulation and request
 resolution, per-product valuation into netting sets with thresholds and
-MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE, CVA),
-first-order sensitivities and the named result assembly.  Exercise products
-(Bermudan, American, FlexiCall, Storage) run their LSM fit and valuation as
-loops over stacked event tables, one per bucket of products of one static
-signature (controller.py:490-876); products without a scan step take the
-per-date unrolled path.  The exercise decisions stay hard: gradients flow
-through the payoffs and the pre-simulation fits, never through the policy.
-Hessians, batching and streaming are not ported yet.
+MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE, CVA), analytic
+PV evaluation, first- and second-order sensitivities and the named result
+assembly.  Exercise products (Bermudan, American, FlexiCall, Storage) run
+their LSM fit and valuation as loops over stacked event tables, one per
+bucket of products of one static signature (controller.py:490-876);
+products without a scan step take the per-date unrolled path.  The exercise
+decisions stay hard: gradients of every order flow through the payoffs and
+the pre-simulation fits, never through the policy.  Batching and streaming
+are not ported yet.
+
+A PV metric of ``EvaluationType.ANALYTICAL`` takes each product's closed
+form where it has one and the Monte Carlo mean of the others
+(controller.py:956-1001, 1139-1144); a product all of whose metrics are
+analytic is not simulated, and a book of only such products skips the
+simulation (controller.py:367-380).
 
 PyTorch runs the pipeline eagerly on ``device``.  Path generation takes one
 of two routes:
@@ -51,6 +58,19 @@ count V, else reverse mode.
 
 Gradients flow through the pre-simulation's regression coefficients, as in
 the JAX package.
+
+Hessians (``compute_higher_derivatives()`` before ``run_simulation``,
+controller.py:394, 1652-1683) are computed one row at a time: row j is the
+forward tangent, in direction e_j, of the function that returns the
+first-order rows, so H[i][j] = d jac[i] / d p_j and each row's memory stays
+near the first order's.  On the forward branch that function is the chunked
+``jvp``-under-``vmap`` sweep (forward over forward); on the reverse branch
+it is a functional gradient, ``torch.func.vjp`` with ``vmap`` over the V
+cotangents (forward over reverse), since ``torch.func.jvp`` cannot wrap
+``torch.autograd.grad``.  The frozen kernel draws are computed once per
+run, before the jacobian and every Hessian row, so a kernel book launches
+its kernel once per phase whatever P is, and its Hessian is the exact
+second-order pathwise derivative of the kernel's own trajectory.
 """
 
 from __future__ import annotations
@@ -63,7 +83,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import jvp, vmap
+from torch.func import jvp, vjp, vmap
 
 from montecarlo_risk_engine_tpu_torch import rng
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
@@ -74,6 +94,7 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
     Metric,
     MetricType,
     RiskMetrics,
+    mc_mean_and_error,
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
@@ -160,8 +181,12 @@ class SimulationController:
             for t in self.exposure_timeline
         }
 
-        if any(m.evaluation_type == EvaluationType.ANALYTICAL for m in risk_metrics.metrics):
-            raise NotImplementedError("analytic metric evaluation is not ported yet")
+        # Analytic evaluation exists for PV only (controller.py:138-150).
+        for m in risk_metrics.metrics:
+            if m.evaluation_type == EvaluationType.ANALYTICAL and m.metric_type != MetricType.PV:
+                raise ValueError(
+                    "EvaluationType.ANALYTICAL is only supported for the PV metric; "
+                    f"{m.metric_type.name} has no analytic evaluation")
         if risk_metrics.any_xva:
             if not isinstance(model, ModelConfig):
                 raise ValueError("ModelConfig needs to be provided for xVA valuation.")
@@ -175,6 +200,7 @@ class SimulationController:
         self.num_steps = int(num_steps)
         self.simulation_scheme = simulation_scheme
         self.differentiate = bool(differentiate)
+        self.requires_higher_order_derivatives = False
         self.regression_function = regression_function or PolynomialRegression(degree=2)
         self.root_seed = int(root_seed)
         self.antithetic = bool(antithetic)
@@ -203,6 +229,8 @@ class SimulationController:
         self.simulation_timeline: Tuple[float, ...] = tuple(
             sorted(prod_times | set(self.exposure_timeline)))
 
+        self._analytic_ids = {p.product_id for p in self.products
+                              if self._can_skip_monte_carlo_for_product(p)}
         self.requires_regression = any(self._product_requires_regression(p)
                                        for p in self.products)
         if self.requires_regression and self.num_paths_presim <= 0:
@@ -249,6 +277,22 @@ class SimulationController:
             return True
         return (self.risk_metrics.requires_exposure_profiles()
                 and not self._can_use_analytic_exposure_for_product(product))
+
+    def _can_evaluate_metric_analytically(self, product: Product, metric: Metric) -> bool:
+        return (metric.metric_type == MetricType.PV
+                and metric.evaluation_type == EvaluationType.ANALYTICAL
+                and product.supports_analytic_pv(self.model))
+
+    def _can_skip_monte_carlo_for_product(self, product: Product) -> bool:
+        """Every metric of the product is its closed form (controller.py:374-380)."""
+        if self.risk_metrics.requires_exposure_profiles():
+            return False
+        return all(self._can_evaluate_metric_analytically(product, m)
+                   for m in self.risk_metrics.metrics)
+
+    def compute_higher_derivatives(self) -> None:
+        """Ask a differentiated run for Hessians too (controller.py:394)."""
+        self.requires_higher_order_derivatives = True
 
     def _get_requests(self):
         requests = defaultdict(set)
@@ -301,8 +345,15 @@ class SimulationController:
 
     # -- simulation -------------------------------------------------------------
 
+    def _simulates(self) -> bool:
+        """Whether any product is valued on paths (a book of closed forms
+        only is not simulated)."""
+        return len(self._analytic_ids) < len(self.products)
+
     def _phases(self):
         """(phase, num_paths) of every simulation a run makes."""
+        if not self._simulates():
+            return []
         phases = [(rng.PHASE_MAINSIM, self.num_paths_mainsim)]
         if self.requires_regression:
             phases.append((rng.PHASE_PRESIM, self.num_paths_presim))
@@ -713,7 +764,13 @@ class SimulationController:
         zero = torch.zeros((), dtype=real_dtype(), device=self.device)
         return [(zero, zero) for _ in range(n_evals)]
 
-    def _evaluate_netting_set(self, ns_idx: int, netting_set, cfs, netted_exposures, resolved):
+    def _evaluate_netting_set(self, ns_idx: int, netting_set, cfs, netted_exposures, resolved,
+                              analytic, has_pathwise: bool):
+        """Every metric of one netting set.  ``analytic``: per metric, the
+        sum of the closed-form values of the products that skip the
+        simulation; an analytic PV adds the Monte Carlo mean of the others,
+        whose standard error it reports (zero without them,
+        controller.py:990-1000)."""
         exposure_list = []
         if netted_exposures is not None:
             unsecured = netting_set.compute_unsecured_exposure_profiles(
@@ -724,11 +781,20 @@ class SimulationController:
             )
             exposure_list = list(unsecured.unbind(0))
         results = []
-        for metric in self.risk_metrics.metrics:
+        for metric_idx, metric in enumerate(self.risk_metrics.metrics):
             # CVA is gated on the counterparty (controller.py:982-989).
             if (metric.metric_type == MetricType.CVA and netting_set.counterparty_id is not None
                     and getattr(metric, "counterparty_id", None) != netting_set.counterparty_id):
                 results.append(self._zero_metric_result(metric))
+                continue
+            if (metric.metric_type == MetricType.PV
+                    and metric.evaluation_type == EvaluationType.ANALYTICAL):
+                value = analytic[metric_idx]
+                if has_pathwise:
+                    numeric, err = mc_mean_and_error(cfs)
+                else:
+                    numeric, err = torch.zeros_like(value), torch.zeros_like(value)
+                results.append([(value + numeric, err)])
                 continue
             results.append(metric.evaluate(exposures=exposure_list, cfs=cfs,
                                            resolved_requests=resolved, netting_set=netting_set,
@@ -736,13 +802,27 @@ class SimulationController:
         return results
 
     def _evaluate_products(self, params, resolved, fits):
-        """Every product into its netting set: the exercise buckets reduced
-        by one ``index_add`` each (controller.py:1084-1133), the other
-        products one by one."""
+        """Every product into its netting set: the closed forms of the
+        products that skip the simulation summed per metric
+        (controller.py:1139-1144), the exercise buckets reduced by one
+        ``index_add`` each (controller.py:1084-1133), the other products one
+        by one."""
         num_ns, n = len(self.netting_sets), self.num_paths_mainsim
         cfs_acc = torch.zeros((num_ns, n), dtype=real_dtype(), device=self.device)
         exp_acc: List[Optional[torch.Tensor]] = [None] * num_ns
-        done = set()
+        zero = torch.zeros((), dtype=real_dtype(), device=self.device)
+        analytic = [[zero] * len(self.risk_metrics.metrics) for _ in range(num_ns)]
+        has_pathwise = [False] * num_ns
+        for product in self.products:
+            if product.product_id not in self._analytic_ids:
+                has_pathwise[self.product_to_netting_set_idx[product.product_id]] = True
+                continue
+            acc = analytic[self.product_to_netting_set_idx[product.product_id]]
+            for metric_idx, metric in enumerate(self.risk_metrics.metrics):
+                value = metric.evaluate_analytically(product=product, model=self.model,
+                                                     params=params)[0][0]
+                acc[metric_idx] = acc[metric_idx] + value
+        done = set(self._analytic_ids)
         for products, coeffs in fits["buckets"]:
             cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
             ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
@@ -769,7 +849,8 @@ class SimulationController:
             zeros = torch.zeros((len(self.exposure_timeline), n), dtype=real_dtype(),
                                 device=self.device)
             exp_acc = [zeros if e is None else e for e in exp_acc]
-        return [self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved)
+        return [self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved, analytic[i],
+                                           has_pathwise[i])
                 for i, ns in enumerate(self.netting_sets)]
 
     def _fit_regressions(self, params, resolved_pre):
@@ -790,8 +871,10 @@ class SimulationController:
                                                       rng.PHASE_PRESIM, kernel_noise)
             fits = self._fit_regressions(params, resolved_pre)
             del resolved_pre  # free the pre-simulation before the main one
-        resolved = self._simulate_and_resolve(params, self.num_paths_mainsim,
-                                              rng.PHASE_MAINSIM, kernel_noise)
+        resolved = None
+        if self._simulates():
+            resolved = self._simulate_and_resolve(params, self.num_paths_mainsim,
+                                                  rng.PHASE_MAINSIM, kernel_noise)
         return self._evaluate_products(params, resolved, fits)
 
     @staticmethod
@@ -812,16 +895,19 @@ class SimulationController:
 
     # -- sensitivities --------------------------------------------------------------
 
-    def _jacobian(self, params):
-        """(values [V], errors [V], jacobian [P, V]) of the differentiated run."""
-        n_params = len(params)
+    def _resolve_grad_mode(self, params) -> None:
+        """Forward mode when the parameter count is at most the value count,
+        else reverse (controller.py:1700-1705)."""
         n_values = sum(n for ns in self._result_spec() for n in ns)
-        kernel_noise = self._kernel_noise_of(params) if self._kernel_active else None
-        self._grad_mode_resolved = "fwd" if n_params <= n_values else "rev"
+        self._grad_mode_resolved = "fwd" if len(params) <= n_values else "rev"
 
-        def pair(p):
-            return self._flatten(self._compute(p, kernel_noise))
+    def _pair_fn(self, kernel_noise):
+        """params -> (values [V], errors [V]) of one run on the frozen draws."""
+        return lambda p: self._flatten(self._compute(p, kernel_noise))
 
+    def _jacobian(self, params, kernel_noise=None):
+        """(values [V], errors [V], jacobian [P, V]) of the differentiated run."""
+        pair = self._pair_fn(kernel_noise)
         if self._grad_mode_resolved == "rev":
             params = tuple(p.detach().requires_grad_(True) for p in params)
             values, errors = pair(params)
@@ -829,6 +915,12 @@ class SimulationController:
             grads = torch.autograd.grad(values, params, grad_outputs=cotangents,
                                         is_grads_batched=True)
             return values.detach(), errors.detach(), torch.stack(grads)
+        return self._jacfwd(pair, params)
+
+    def _jacfwd(self, pair, params):
+        """Forward mode: ``jvp`` under ``vmap`` over chunks of
+        ``grad_chunk_size`` parameter tangents, (values, errors, [P, V])."""
+        n_params = len(params)
 
         def sweep(tangent):
             values, dvalues, errors = jvp(pair, (params,), (tangent,), has_aux=True)
@@ -843,6 +935,33 @@ class SimulationController:
             rows.append(rows_c)
         return values, errors, torch.cat(rows)
 
+    @staticmethod
+    def _jacrev(pair, params):
+        """Reverse mode as a functional gradient: ``torch.func.vjp`` of the
+        values, ``vmap`` over the V unit cotangents, (values, errors, [P, V]).
+        Unlike ``torch.autograd.grad`` it composes with an outer
+        ``torch.func.jvp``: the Hessian rows of the reverse branch."""
+        values, vjp_fn, errors = vjp(pair, params, has_aux=True)
+        cotangents = torch.eye(values.shape[0], dtype=values.dtype, device=values.device)
+        (grads,) = vmap(vjp_fn)(cotangents)
+        return values, errors, torch.stack(grads)
+
+    def _hessian_row(self, jac_fn, params, j: int):
+        """Row j of the Hessian, [P, V]: d jac[i] / d p_j for every i, the
+        forward tangent of ``jac_fn`` in direction e_j (controller.py:1652-1671)."""
+        tangent = tuple(torch.zeros_like(p) for p in params)
+        tangent[j].fill_(1.0)
+        return jvp(jac_fn, (params,), (tangent,))[1].detach()
+
+    def _hessian(self, params, kernel_noise=None):
+        """[P, P, V] Hessian, H[i, j] = d jac[i] / d p_j, one row (one outer
+        tangent) at a time (controller.py:1673-1683)."""
+        pair = self._pair_fn(kernel_noise)
+        jacobian = self._jacrev if self._grad_mode_resolved == "rev" else self._jacfwd
+        jac_fn = lambda p: jacobian(pair, p)[2]
+        rows = [self._hessian_row(jac_fn, params, j) for j in range(len(params))]
+        return torch.stack(rows, dim=1)
+
     # -- public entry point (controller.py:2253-2358) -------------------------------
 
     def run_simulation(self) -> SimulationResults:
@@ -851,9 +970,13 @@ class SimulationController:
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
 
         t1 = time.perf_counter()
-        jac_np = None
+        jac_np = hess_np = None
         if self.differentiate:
-            values, errors, jac = self._jacobian(params)
+            # The frozen kernel draws: one kernel run and one noise recovery
+            # per phase, shared by the jacobian and every Hessian row.
+            kernel_noise = self._kernel_noise_of(params) if self._kernel_active else None
+            self._resolve_grad_mode(params)
+            values, errors, jac = self._jacobian(params, kernel_noise)
             jac_np = jac.detach().cpu().numpy()  # [P, V]
         else:
             with torch.no_grad():
@@ -861,37 +984,46 @@ class SimulationController:
         values_np = values.detach().cpu().numpy()
         errors_np = errors.detach().cpu().numpy()
         t2 = time.perf_counter()
+        if self.differentiate and self.requires_higher_order_derivatives:
+            hess_np = self._hessian(params, kernel_noise).cpu().numpy()  # [P, P, V]
+        t3 = time.perf_counter()
 
-        results, derivatives = [], []
+        results, derivatives, second_derivatives = [], [], []
         flat_idx = 0
         n_params = len(params)
         for ns_spec in self._result_spec():
-            ns_results, ns_derivs = [], []
+            ns_results, ns_derivs, ns_hess = [], [], []
             for n_evals in ns_spec:
-                evals, devals = [], []
+                evals, devals, hevals = [], [], []
                 for _ in range(n_evals):
                     evals.append((values_np[flat_idx], errors_np[flat_idx]))
                     if jac_np is not None:
                         devals.append(tuple(jac_np[p, flat_idx] for p in range(n_params)))
+                    if hess_np is not None:
+                        hevals.append([[hess_np[p1, p2, flat_idx] for p2 in range(n_params)]
+                                       for p1 in range(n_params)])
                     flat_idx += 1
                 ns_results.append(evals)
                 ns_derivs.append(devals)
+                ns_hess.append(hevals)
             results.append(ns_results)
             derivatives.append(ns_derivs)
+            second_derivatives.append(ns_hess)
 
-        t3 = time.perf_counter()
+        t4 = time.perf_counter()
         logger.info(
             "Simulation completed for %d netting set(s) and %d product(s) on %s "
-            "(%s paths): preprocessing=%.6fs pipeline=%.6fs postprocessing=%.6fs total=%.6fs",
+            "(%s paths): preprocessing=%.6fs pipeline=%.6fs hessians=%.6fs "
+            "postprocessing=%.6fs total=%.6fs",
             len(self.netting_sets), len(self.products), self.device,
             "kernel" if self._kernel_active else "engine",
-            t1 - t0, t2 - t1, t3 - t2, t3 - t0,
+            t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0,
         )
 
         return SimulationResults(
             results,
             derivatives if jac_np is not None else [],
-            [],
+            second_derivatives if hess_np is not None else [],
             netting_set_names=self._make_unique_names([ns.get_name() for ns in self.netting_sets]),
             metric_names=self._make_unique_names([m.get_name() for m in self.risk_metrics.metrics]),
             model_param_names=self.model.get_model_param_names(),

@@ -2,7 +2,9 @@
 
 Counterpart of ``montecarlo_risk_engine_tpu/models/black_scholes.py``.
 State = [S]; params (reference order): spot, volatility, rate.  Exact
-log-normal (ANALYTICAL) and Euler steps with their inversions; alone under
+log-normal (ANALYTICAL) and Euler steps with their inversions, and the
+Milstein step (JAX black_scholes.py:114; the reference declares MILSTEIN but
+never implements it, quirk Q1), which runs on the engine; alone under
 ANALYTICAL the model takes K2 as one exact "bs" block
 (black_scholes.py:50-92), inside a ModelConfig an Euler one.
 """
@@ -57,6 +59,14 @@ class BlackScholesModel(Model):
         _, sigma, rate = params
         dt = t2 - t1
         return state + rate * state * dt + sigma * state * math.sqrt(dt) * corr_noise
+
+    def step_milstein(self, params, t1, t2, state, corr_noise):
+        # Euler + 0.5 sigma^2 S (dW^2 - dt) (black_scholes.py:114-125).
+        _, sigma, rate = params
+        dt = t2 - t1
+        dw = math.sqrt(dt) * corr_noise
+        return (state + rate * state * dt + sigma * state * dw
+                + 0.5 * sigma * sigma * state * (dw * dw - dt))
 
     def invert_noise(self, params, scheme, t1, t2, state, next_state):
         # black_scholes.py:56-63

@@ -9,11 +9,12 @@ State = [y, log_B]: log_B accumulates the pathwise integral of lambda (left
 Riemann), so SURVIVAL_PROBABILITY resolves to exp(-log_B) and
 CONDITIONAL_SURVIVAL_PROBABILITY to the closed form S(t, T | y_t).  Params
 (reference order): kappa, theta, sigma, y0.  Market hazards are static
-configuration.  The full-truncation Euler step and its inversion, and the
-deterministic mode (``deterministic=True``: y tracks the market hazard,
-cirpp.py:134-149), are ported; the Milstein and analytical steps are not
-yet.  Alone under EULER the model takes K2 as one "cirpp" or "cirpp_det"
-block (cirpp.py:151-187).
+configuration.  The full-truncation Euler step and its inversion, the
+Milstein step, the analytical step (a moment-matched lognormal proxy of the
+CIR transition) with its Gaussian factor loading, and the deterministic
+mode (``deterministic=True``: y tracks the market hazard, cirpp.py:134-149)
+are ported.  Alone under EULER the model takes K2 as one "cirpp" or
+"cirpp_det" block (cirpp.py:151-187); the other schemes run on the engine.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_de
 from montecarlo_risk_engine_tpu_torch.models.base import Model, like, per_row
 from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import KernelBlock
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
+
+_EPS = 1e-12
 
 
 class CIRPPModel(Model):
@@ -128,6 +131,60 @@ class CIRPPModel(Model):
         y_next = y + kappa * (theta - y) * dt + sigma * sqrt_y * math.sqrt(dt) * noise
         log_b = state[:, 1] + (y + self.psi(params, t1)) * dt
         return torch.stack([torch.clamp(y_next, min=1e-12), log_b], dim=-1)
+
+    def step_milstein(self, params, t1, t2, state, corr_noise):
+        # Euler plus the Milstein term of the sqrt(y) diffusion, 0.25 sigma^2
+        # (dW^2 - dt), as Heston's variance leg (cirpp.py:220-240).
+        if self.deterministic:
+            return self._step_deterministic(t1, t2, state)
+        dt = t2 - t1
+        y = state[:, 0]
+        kappa, theta, sigma, _ = params
+        dw = math.sqrt(dt) * corr_noise[:, 0]
+        sqrt_y = torch.sqrt(torch.clamp(y, min=0.0))
+        y_next = (y + kappa * (theta - y) * dt + sigma * sqrt_y * dw
+                  + 0.25 * sigma * sigma * (dw * dw - dt))
+        log_b = state[:, 1] + (y + self.psi(params, t1)) * dt
+        return torch.stack([torch.clamp(y_next, min=1e-12), log_b], dim=-1)
+
+    def step_analytical(self, params, t1, t2, state, corr_noise):
+        # A lognormal with the CIR transition's conditional mean and variance
+        # (cirpp.py:242-265).  The ANALYTICAL noise carries the std of
+        # covariance_matrix, which is divided out to recover the standard
+        # normal driver.
+        if self.deterministic:
+            return self._step_deterministic(t1, t2, state)
+        dt = t2 - t1
+        y = state[:, 0]
+        kappa, theta, sigma, _ = params
+        ekt = torch.exp(-kappa * dt)
+        m = theta + (y - theta) * ekt
+        v = sigma * sigma * (y * ekt * (1.0 - ekt) / kappa + 0.5 * theta * (1.0 - ekt) ** 2 / kappa)
+        var_ratio = torch.clamp(v / (m * m + _EPS), min=1e-12)
+        mu_ln = torch.log(torch.clamp(m, min=_EPS)) - 0.5 * torch.log1p(var_ratio)
+        sig_ln = torch.sqrt(torch.log1p(var_ratio))
+        std = torch.sqrt(self.covariance_matrix(params, dt)[0, 0])
+        z = corr_noise[:, 0] / torch.clamp(std, min=_EPS)
+        y_next = torch.exp(mu_ln + sig_ln * z)
+        log_b = state[:, 1] + (y + self.psi(params, t1)) * dt
+        return torch.stack([torch.clamp(y_next, min=1e-12), log_b], dim=-1)
+
+    def analytic_factor_loadings(self, params):
+        """At the representative level y = theta the CIR diffusion is an OU
+        factor of mean reversion kappa and vol sigma sqrt(theta), whose
+        increment variance is :meth:`covariance_matrix` (cirpp.py:267-285):
+        a ModelConfig's ANALYTICAL covariance correlates this model's driver
+        with the other Gaussian factors at the configured rho."""
+        kappa, theta, sigma, _ = params
+        return [(kappa, sigma * torch.sqrt(theta))]
+
+    def covariance_matrix(self, params, delta_t):
+        # The conditional CIR variance at y = theta (cirpp.py:287-292): only
+        # the scale of the ANALYTICAL noise, divided out by the step.
+        kappa, theta, sigma, _ = params
+        ekt = torch.exp(-kappa * delta_t)
+        v = sigma * sigma * theta * (ekt * (1.0 - ekt) / kappa + 0.5 * (1.0 - ekt) ** 2 / kappa)
+        return torch.clamp(v, min=_EPS).reshape(1, 1)
 
     def invert_noise(self, params, scheme, t1, t2, state, next_state):
         # Euler residual of y (cirpp.py:189-204).  Where the diffusion

@@ -136,6 +136,21 @@ class HestonModel(Model):
         v_next = v + kappa * (theta - v) * dt + sigma * sqrt_v * sqrt_dt * corr_noise[:, 1]
         return torch.stack([log_s_next, torch.clamp(v_next, min=0.0)], dim=-1)
 
+    def step_milstein(self, params, t1, t2, state, corr_noise):
+        # Euler with the Milstein term of the variance leg, 0.25 sigma^2 (dW^2
+        # - dt); the log-spot leg's diffusion does not depend on log S, so its
+        # term vanishes (JAX heston.py:164-179; not in the reference, quirk Q1).
+        _, sigma, rate, _, kappa, theta, _ = self._unpack(params)
+        dt = t2 - t1
+        log_s, v = state[:, 0], state[:, 1]
+        sqrt_v = torch.sqrt(torch.clamp(v, min=0.0))
+        sqrt_dt = dt ** 0.5
+        dw_v = sqrt_dt * corr_noise[:, 1]
+        log_s_next = log_s + (rate - 0.5 * v) * dt + sqrt_v * sqrt_dt * corr_noise[:, 0]
+        v_next = (v + kappa * (theta - v) * dt + sigma * sqrt_v * dw_v
+                  + 0.25 * sigma * sigma * (dw_v * dw_v - dt))
+        return torch.stack([log_s_next, torch.clamp(v_next, min=0.0)], dim=-1)
+
     def _cir_conditional_moments(self, params, v, dt):
         # E[v_{t+dt}|v_t] and Var[v_{t+dt}|v_t] (heston.py:123-143).
         _, sigma, _, _, kappa, theta, _ = self._unpack(params)

@@ -18,8 +18,10 @@ with user-given inter-asset correlation (wrong-way risk).
     descriptors and static joint Cholesky factor come from
     :meth:`kernel_blocks` / :meth:`static_joint_correlation`
     (hybrid.py:213-284).  The other models run on the engine.
-  * The joint ANALYTICAL covariance (hybrid.py:152-206) is not ported yet:
-    :meth:`covariance_matrix` raises.
+  * Under ANALYTICAL the joint one-step covariance (hybrid.py:152-206) has
+    the sub-models' own covariances on the diagonal blocks and, between two
+    models, the closed form of their Gaussian factor loadings
+    (:meth:`Model.analytic_factor_loadings`); such books run on the engine.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme
-from montecarlo_risk_engine_tpu_torch.models.base import Model
+from montecarlo_risk_engine_tpu_torch.models.base import Model, like
 from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
 from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.models.cirpp import CIRPPModel
@@ -131,9 +133,52 @@ class ModelConfig(Model):
         return 0.5 * (corr + corr.mT)
 
     def covariance_matrix(self, params, delta_t):
-        raise NotImplementedError(
-            "the joint ANALYTICAL covariance of a ModelConfig (JAX hybrid.py:152-206) is not "
-            "ported yet; use EULER")
+        """Joint one-step covariance of the ANALYTICAL noise over ``delta_t``
+        (hybrid.py:152-170): the sub-models' covariances on the diagonal, the
+        closed-form cross covariance of each pair off it."""
+        sub = [self._sub_params(params, i) for i in range(len(self.models))]
+        blocks = {}
+        pair_idx = 0
+        for i, m1 in enumerate(self.models):
+            blocks[i, i] = m1.covariance_matrix(sub[i], delta_t)
+            for j in range(i + 1, len(self.models)):
+                corr = like(self._inter_corr[pair_idx], params[0])
+                blocks[i, j] = self._inter_covariance(m1, sub[i], self.models[j], sub[j], corr,
+                                                      delta_t)
+                blocks[j, i] = blocks[i, j].mT
+                pair_idx += 1
+        n = len(self.models)
+        cov = torch.cat([torch.cat([blocks[i, j] for j in range(n)], dim=1) for i in range(n)])
+        return 0.5 * (cov + cov.mT)
+
+    @staticmethod
+    def _inter_covariance(m1, p1, m2, p2, corr_block, delta_t):
+        """Covariance of two models' ANALYTICAL noise increments driven by
+        rho-correlated Brownians (hybrid.py:172-206): with each factor's
+        increment v int_0^dt e^{-a (dt - u)} dW(u),
+        C_ij = v_i v_j rho_ij (1 - e^{-(a_i + a_j) dt}) / (a_i + a_j), whose
+        a_i + a_j -> 0 limit is dt (the Black-Scholes pair's sigma_1 sigma_2
+        rho dt)."""
+        la = m1.analytic_factor_loadings(p1)
+        lb = m2.analytic_factor_loadings(p2)
+        if la is None or lb is None:
+            raise NotImplementedError(
+                "Joint ANALYTICAL covariance needs Gaussian-increment factor loadings on both "
+                f"models; {type(m1).__name__} x {type(m2).__name__} has none — use EULER/QE "
+                "for this hybrid combination.")
+        ref = corr_block
+        rows = []
+        for a_i, v_i in la:
+            row = []
+            for a_j, v_j in lb:
+                s = like(a_i, ref) + like(a_j, ref)
+                near_zero = torch.abs(s) < 1e-12
+                s_safe = torch.where(near_zero, torch.ones_like(s), s)
+                integral = torch.where(near_zero, like(delta_t, ref),
+                                       -torch.expm1(-s_safe * delta_t) / s_safe)
+                row.append(like(v_i, ref) * like(v_j, ref) * integral)
+            rows.append(torch.stack(row))
+        return torch.stack(rows) * corr_block
 
     def uses_uniforms(self, scheme):
         return any(m.uses_uniforms(scheme) for m in self.models)

@@ -10,6 +10,18 @@ barrier_option.py:125-141); closed forms for up-and-out and down-and-out
 calls (barrier_option.py:201-242).  Payoffs are deflated by the numeraire at
 maturity, as in the JAX package.
 
+Two formulas differ from the JAX package's, which are wrong:
+
+  * the bridge's dt is the observation interval (maturity - startdate) /
+    (n_obs - 1); JAX takes maturity / n_obs (barrier_option.py:136-137),
+    which lowers every crossing probability and overprices knock-outs;
+  * the down-and-out call is the vanilla call less the textbook down-and-in
+    call, whose strike term carries (B/S)^(2 lambda - 2) with lambda = r /
+    sigma^2 + 1/2; JAX's (barrier_option.py:229-238) lacks a factor S/B
+    there (10.0968 against 10.3513 at S = K = 100, B = 80, r = 5 %, sigma =
+    20 %, T = 1).  A strike below the barrier takes the textbook's other
+    case, where JAX has no formula of its own.
+
 Bridge uniforms come from ``rng.bridge_uniforms`` (Philox under
 ``PHASE_BRIDGE``, seed 0, counter (product id, barrier index, path,
 interval)); ``bridge_source``, set by the controller, replaces that stream
@@ -106,7 +118,8 @@ class BarrierOption(Product):
 
     def _bridge_hit_prob(self, spots, barrier, sigma, uniforms, is_fuzzy):
         """1 - prod(1 - p_i) over the intervals (barrier_option.py:125-141)."""
-        dt = self.maturity / spots.shape[1]
+        dates = self.modeling_timeline
+        dt = (dates[-1] - dates[0]) / (len(dates) - 1)
         log_ratio = torch.log(spots / barrier)
         bridge = torch.exp(-2.0 * log_ratio[:, :-1] * log_ratio[:, 1:] / (sigma * sigma * dt))
         hit_probs = compute_degree_of_truth(bridge - uniforms, is_fuzzy)
@@ -180,14 +193,24 @@ class BarrierOption(Product):
             return (spot < barrier).to(spot.dtype) * (term_spot - term_strike)
 
         if self.barrier_option_type1 == BarrierOptionType.DOWNANDOUT and call:
-            d1 = d_plus(spot / strike)
-            d2 = d1 - sigma * sqrt_tau
-            d1_bk = d_plus(barrier * barrier / (strike * spot))
-            d2_bk = d1_bk - sigma * sqrt_tau
+            # vanilla call less the down-and-in call (Reiner and Rubinstein, 1991), with
+            # (B/S)^(2 lambda) = factor (B/S) and (B/S)^(2 lambda - 2) = factor (S/B)
+            vol_shift = sigma * sqrt_tau
+            disc_k = strike * torch.exp(-rate * tau)
             factor = (barrier / spot) ** (2.0 * rate / (sigma * sigma))
-            term1 = spot * ndtr(d1) - strike * torch.exp(-rate * tau) * ndtr(d2)
-            term2 = (barrier / spot) * ndtr(d1_bk) - (strike / spot) * torch.exp(-rate * tau) * ndtr(d2_bk)
-            return (spot > barrier).to(spot.dtype) * (term1 - spot * factor * term2)
+            if self.strike >= self.barrier1:
+                d1 = d_plus(spot / strike)
+                d1_bk = d_plus(barrier * barrier / (strike * spot))
+                vanilla = spot * ndtr(d1) - disc_k * ndtr(d1 - vol_shift)
+                down_in = factor * (barrier * ndtr(d1_bk)
+                                    - (spot / barrier) * disc_k * ndtr(d1_bk - vol_shift))
+                value = vanilla - down_in
+            else:
+                x1, y1 = d_plus(spot / barrier), d_plus(barrier / spot)
+                value = (spot * ndtr(x1) - disc_k * ndtr(x1 - vol_shift)
+                         - factor * (barrier * ndtr(y1)
+                                     - (spot / barrier) * disc_k * ndtr(y1 - vol_shift)))
+            return (spot > barrier).to(spot.dtype) * value
 
         raise NotImplementedError(
             f"Analytical price for {self.barrier_option_type1}/{self.option_type} not implemented.")

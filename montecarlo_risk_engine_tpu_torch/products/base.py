@@ -35,6 +35,11 @@ class OptionType(enum.Enum):
     PUT = 2
 
 
+class SettlementType(enum.Enum):
+    PHYSICAL = 0
+    CASH = 1
+
+
 class ProductFamily(enum.Enum):
     GENERIC = "generic"
     VANILLA_TERMINAL_OPTION = "vanilla_terminal_option"

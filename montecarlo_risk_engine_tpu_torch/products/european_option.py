@@ -3,12 +3,14 @@
 Counterpart of ``montecarlo_risk_engine_tpu/products/european_option.py``:
 terminal payoff on a composite underlying value, the Black-Scholes closed
 form and the pathwise analytic exposure it gives under a Black-Scholes
-model, and the Heston characteristic-function pricer (a host-side
-numpy/scipy oracle).
+model, the closed-form gamma and vomma (the oracles of the Hessian), the
+Vasicek zero-bond option and the Heston characteristic-function pricer (a
+host-side numpy/scipy oracle).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -18,6 +20,7 @@ from scipy.integrate import quad
 from montecarlo_risk_engine_tpu_torch.models.black_scholes import BlackScholesModel
 from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.models.heston import HestonModel
+from montecarlo_risk_engine_tpu_torch.models.vasicek import VasicekModel
 from montecarlo_risk_engine_tpu_torch.products.base import (
     OptionType,
     Product,
@@ -106,6 +109,55 @@ class EuropeanOption(Product):
             return torch.zeros_like(spot)
         _, sigma, rate = self._bs_spot_vol_rate(model, params)
         return self.bs_price(spot, rate, sigma, tau) / torch.reshape(numeraire, (-1,))
+
+    # -- second-order closed forms (european_option.py:114-128) --------------------
+    # Black-Scholes gamma and vomma of params (spot, volatility, rate), over
+    # tau = exercise date, as the JAX package (and the reference) takes it.
+
+    def _bs_d1(self, params):
+        spot, sigma, rate = params[0], params[1], params[2]
+        tau = self.exercise_date
+        return (torch.log(spot / self.strike) + (rate + 0.5 * sigma * sigma) * tau) / (
+            sigma * math.sqrt(tau))
+
+    def compute_dDeltadSpot_analytically(self, model, params):
+        """Black-Scholes gamma, d^2 PV / d spot^2."""
+        spot, sigma = params[0], params[1]
+        d1 = self._bs_d1(params)
+        pdf_d1 = torch.exp(-0.5 * d1 * d1) / math.sqrt(2.0 * math.pi)
+        return pdf_d1 / (spot * sigma * math.sqrt(self.exercise_date))
+
+    def compute_dVegadSigma_analytically(self, model, params):
+        """Black-Scholes vomma, d^2 PV / d volatility^2."""
+        spot, sigma = params[0], params[1]
+        d1 = self._bs_d1(params)
+        d2 = d1 - sigma * math.sqrt(self.exercise_date)
+        pdf_d1 = torch.exp(-0.5 * d1 * d1) / math.sqrt(2.0 * math.pi)
+        return spot * pdf_d1 * math.sqrt(self.exercise_date) * d1 * d2 / sigma
+
+    # -- Vasicek zero-bond option (european_option.py:175-190) -------------------
+
+    def compute_pv_bond_option_analytically(self, model: VasicekModel, params):
+        """Option on the zero bond underlying it under Vasicek (Jamshidian):
+        the Black form on P(t0, T_bond) against K P(t0, T_exercise) with the
+        bond's price volatility."""
+        from montecarlo_risk_engine_tpu_torch.products.bond import Bond
+
+        if not isinstance(self.underlying, Bond):
+            raise TypeError("Expected the underlying to be a Bond")
+        rate, sigma, _, a = params
+        t0 = model.calibration_date
+        p_exercise = model.bond_price(params, t0, self.exercise_date, rate)
+        p_maturity = model.bond_price(params, t0, self.underlying.maturity, rate)
+        b_ts = (1.0 - torch.exp(-a * (self.underlying.maturity - self.exercise_date))) / a
+        sigma_p = sigma * torch.sqrt(
+            (1.0 - torch.exp(-2.0 * a * (self.exercise_date - t0))) / (2.0 * a)) * b_ts
+        d1 = (torch.log(p_maturity / (p_exercise * self.strike)) + 0.5 * sigma_p ** 2) / sigma_p
+        d2 = d1 - sigma_p
+        ndtr = torch.special.ndtr
+        if self.option_type == OptionType.CALL:
+            return p_maturity * ndtr(d1) - self.strike * p_exercise * ndtr(d2)
+        return self.strike * p_exercise * ndtr(-d2) - p_maturity * ndtr(-d1)
 
     # -- Heston semi-analytic price (host-side oracle) ----------------------------
     # Stable characteristic-function form (european_option.py:156-262): the

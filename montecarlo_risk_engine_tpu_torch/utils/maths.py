@@ -1,4 +1,5 @@
-"""Fuzzy-logic smoothing (counterpart of ``montecarlo_risk_engine_tpu/utils/maths.py``).
+"""Fuzzy-logic smoothing and host-side root finding (counterpart of
+``montecarlo_risk_engine_tpu/utils/maths.py``).
 
 ``symmetric_linear_smoothing`` is the hard ``(x > 0)`` indicator when
 smoothing is off and the linear ramp ``clamp((x + eps) / (2 eps), 0, 1)``
@@ -9,6 +10,8 @@ bool, set once when differentiation is enabled (reference model.py:83-90).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -52,3 +55,29 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     f = torch.where(flat < first, fp[..., :1] if batch else fp[0], f)
     f = torch.where(flat > last, fp[..., -1:] if batch else fp[-1], f)
     return f.reshape(x.shape)
+
+
+def bisection_search(func: Callable[[float], float], low: float = 1e-10, high: float = 5.0,
+                     tolerance: float = 1e-12, iters: int = 100) -> Optional[float]:
+    """Host-side scalar bisection with bracket expansion (JAX maths.py:43-72,
+    reference maths.py:14-33): the upper end doubles up to 20 times until
+    the bracket changes sign, else None.  Used at set-up time only (the CDS
+    hazard bootstrap)."""
+    value_low, value_high = func(low), func(high)
+    cnt = 0
+    while value_low * value_high > 0.0 and cnt < 20:
+        high *= 2.0
+        value_high = func(high)
+        cnt += 1
+    if value_low * value_high > 0.0:
+        return None
+    for _ in range(iters):
+        mid = 0.5 * (low + high)
+        value_mid = func(mid)
+        if abs(value_mid) < tolerance or (high - low) < 1e-12:
+            return mid
+        if value_low * value_mid <= 0.0:
+            high, value_high = mid, value_mid
+        else:
+            low, value_low = mid, value_mid
+    return 0.5 * (low + high)

@@ -36,6 +36,11 @@ class PolynomialRegression(RegressionFunction):
         return torch.stack([explanatory ** k for k in range(self.degree + 1)], dim=-1)
 
 
+# The reference's misspelled public name (JAX regression.py:42), so user
+# scripts port unchanged.
+PolyomialRegression = PolynomialRegression
+
+
 def fit_least_squares(A: torch.Tensor, Y: torch.Tensor, ridge_rel: Optional[float] = None,
                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``argmin sum_n w_n (A c - Y)_n^2`` for A [..., N, deg], Y [..., N, S]
@@ -61,5 +66,10 @@ def fit_least_squares(A: torch.Tensor, Y: torch.Tensor, ridge_rel: Optional[floa
     eye = torch.eye(deg, dtype=A.dtype, device=A.device)
     gram = gram + (ridge_rel * scale + 1e-30)[..., None, None] * eye
     rhs = torch.stack([torch.sum(A_w[..., d:d + 1] * Y, dim=-2) for d in range(deg)], dim=-2)
-    coeffs = torch.linalg.solve_ex(gram, rhs).result
+    # LU factor and solve, the steps of torch.linalg.solve_ex with the same
+    # numbers: solve's own forward-mode rule is wrong under a second forward
+    # tangent (torch.func.jvp of jvp), and these two are differentiated
+    # correctly to every order
+    lu, pivots, _ = torch.linalg.lu_factor_ex(gram)
+    coeffs = torch.linalg.lu_solve(lu, pivots, rhs)
     return (coeffs / col_scale[..., :, None]).mT

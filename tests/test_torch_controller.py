@@ -137,8 +137,9 @@ def test_kernel_selection_rule():
 
 
 def test_unported_features_raise():
-    # Thresholds, MPoR collateral and early exercise are ported; the analytic
-    # PV evaluation is not.
+    # Thresholds, MPoR collateral, early exercise and the analytic PV
+    # evaluation are ported; analytic evaluation of another metric raises at
+    # construction, as in the JAX package (controller.py:138-150).
     assert mt.NettingSet(name="x", products=[object()], threshold=1.0).threshold == 1.0
     assert mt.NettingSet(name="x", products=[object()], margin_period_of_risk=0.1).is_collateralized()
     model, netting_sets = slice_book(mt)
@@ -148,9 +149,16 @@ def test_unported_features_raise():
     assert c.requires_regression  # a regression timeline asks for the presim fit
     model, netting_sets = slice_book(mt)
     analytic = mt.PVMetric(evaluation_type=mt.Metric.EvaluationType.ANALYTICAL)
-    with pytest.raises(NotImplementedError):
-        mt.SimulationController(netting_sets, model, mt.RiskMetrics([analytic]), 64, 0,
+    c = mt.SimulationController(netting_sets, model, mt.RiskMetrics([analytic]), 64, 0,
                                 NUM_STEPS, mt.SimulationScheme.QE, device="cpu")
+    assert c._simulates()  # Heston has no closed form here: the PV stays Monte Carlo
+    for pkg in (mj, mt):
+        model, netting_sets = slice_book(pkg)
+        kw = dict(device="cpu") if pkg is mt else dict(use_pallas=False)
+        with pytest.raises(ValueError, match="only supported for the PV metric"):
+            pkg.SimulationController(netting_sets, model, pkg.RiskMetrics(
+                [pkg.EPEMetric(evaluation_type=pkg.Metric.EvaluationType.ANALYTICAL)],
+                exposure_timeline=[0.0, 0.5]), 64, 0, NUM_STEPS, pkg.SimulationScheme.QE, **kw)
 
 
 def test_resolve_device_refuses_missing_cuda(monkeypatch):

@@ -177,8 +177,11 @@ def test_model_config_blocks_and_correlation_match_jax():
         np.asarray(jm.correlation_matrix(jm.initial_params(), mj.SimulationScheme.EULER)))
     assert pm.supports_kernel_paths(E) and pm.simulation_dim == 8
     assert not pm.supports_kernel_paths(A)
-    with pytest.raises(NotImplementedError):
-        pm.covariance_matrix(pm.initial_params(), 0.25)
+    # ANALYTICAL runs on the engine with the joint covariance of the factor
+    # loadings (JAX hybrid.py:152-206)
+    np.testing.assert_allclose(pm.covariance_matrix(pm.initial_params(), 0.25).numpy(),
+                               np.asarray(jm.covariance_matrix(jm.initial_params(), 0.25)),
+                               rtol=1e-12, atol=1e-15)
     s2f_config = mt.ModelConfig([make("s2f", mt), make("bs", mt)])
     assert s2f_config.kernel_blocks() is None and mj.ModelConfig(
         [make("s2f", mj), make("bs", mj)])._kernel_blocks() is None
