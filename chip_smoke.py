@@ -15,8 +15,8 @@ plain PyTorch version:
     (``hybrid_paths``, Euler blocks bs, vasicek, cirpp);
   * the BS-multi European book of ``benchmarks/pv_european_book.py``
     (10,000 options over the four assets of a BlackScholesMulti, 2^20
-    paths, ANALYTICAL, PV) on K2's exact bs_multi block, forward at full
-    size and differentiated at 1,000 options;
+    paths, ANALYTICAL, PV) on K2's exact bs_multi block, forward and
+    differentiated at full size (the family batches' hinge sums);
   * the K2 routes of the other models: the 100-basket family of
     ``benchmarks/pv_large_book.py`` on the same model, a Hull-White bond, a
     Schwartz-2F call, standalone Black-Scholes, Vasicek and CIR++
@@ -26,11 +26,13 @@ plain PyTorch version:
     (Europeans, binaries, baskets, Asians, barriers, Americans, FlexiCalls
     and storage deals on the 4-asset BlackScholesMulti, 1,000 main and
     1,000 presim paths) on K2's exact bs_multi block, forward and
-    differentiated; the products against their oracles (American puts
-    against a CRR tree, barriers, binary and FlexiCall against closed forms,
-    Asian call-put parity) on Black-Scholes, storage against a DP oracle on
-    Schwartz-2F; and the CVA book of ``benchmarks/cva_large_book.py`` at
-    scale 0.05 (a ModelConfig of BS-multi and CIR++, EULER);
+    differentiated, and family-batched against per-product; the products
+    against their oracles (American puts against a CRR tree, barriers,
+    binary and FlexiCall against closed forms, Asian call-put parity) on
+    Black-Scholes, storage against a DP oracle on Schwartz-2F; and the
+    5,000-product CVA book of ``benchmarks/cva_large_book.py`` (a ModelConfig
+    of BS-multi and CIR++, EULER, CVA on 80 dates), forward and
+    differentiated;
   * Hessians (``compute_higher_derivatives``), each on the kernel route and
     the engine route: the Heston book at full size (K1 emitted draws,
     forward branch), a Black-Scholes call (K2 bs exact; the JAX package's
@@ -74,11 +76,14 @@ Phases:
   7. the other K2 routes, each with its counts from 0 and its own oracle;
      then the mixed book (forward cold and warm; one netting set per
      family differentiated on both routes: the book's PV 1e-4, its
-     jacobian rtol 1e-3, the families that miss printed), the product
-     oracles (the down-and-out barrier against the textbook closed form
-     within max(6 SE, 1 %)), the storage scenarios and the storage scan
-     against its unrolled path, and the CVA book (kernel vs engine route
-     1e-4), each with its counts from 0;
+     jacobian rtol 1e-3, the families that miss printed; one netting set
+     per family forward, batched against per-product on the same K2
+     draws: the book's PV 1e-9, each family printed), the product oracles
+     (the down-and-out barrier against the textbook closed form within
+     max(6 SE, 1 %)), the storage scenarios and the storage scan against
+     its unrolled path, and the full CVA book (forward cold and warm,
+     differentiated in reverse mode; kernel vs engine route: CVA 1e-4, its
+     jacobian rtol 1e-3, atol 1e-6), each with its counts from 0;
   7c. in a second process on the same card (``--hessians-only``), started
      before 7b and run beside it, its output printed after 7b: Hessians,
      each with its counts from 0 (exactly one K1 or K2 launch,
@@ -90,9 +95,9 @@ Phases:
      the same stream and paths within rtol 1e-3; the Hessian walls, peak
      memory and each row's wall and peak printed; the analytic route's
      gamma and vomma against the closed forms to 1e-9;
-  8. profile the BS-multi book and the forward run of the mixed book at
-     scale 0.1 (after all the walls: a profiler run slows the launches that
-     follow it);
+  8. profile the BS-multi book and the mixed book's forward run, batched
+     and at full size, and per product at scale 0.1 (after all the walls: a
+     profiler run slows the launches that follow it);
   9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
@@ -175,7 +180,6 @@ CVA_REF, CVA_REF_SE = 0.2872266, 1.8e-5
 
 # BS-multi European book (benchmarks/pv_european_book.py:37-64).
 EURO_OPTIONS = 10_000
-EURO_DIFF_OPTIONS = 1_000  # the reverse pass keeps ~2 [2^20] f64 tensors per product
 ASSETS = tuple(f"asset_{i}" for i in range(4))
 
 # Device peaks for the bounds (NVIDIA H100 SXM data sheet).
@@ -943,13 +947,13 @@ def bs_hessian():
 
 
 def bs_multi_hessian():
-    """The BS-multi European book's Hessian at its differentiated size
-    (1,000 options, K2 bs_multi exact with recovered draws, reverse branch,
+    """The BS-multi European book's Hessian at full size (10,000 options,
+    K2 bs_multi exact with recovered draws, reverse branch,
     P = 9) on both routes; returns K2's launches."""
     reset_k2_counts()
     _, (_, _, launches, table) = hessian_routes(
         "bs-multi european hessian",
-        lambda use_kernel, source: euro_book(EURO_DIFF_OPTIONS, True, use_kernel, source)[0])
+        lambda use_kernel, source: euro_book(EURO_OPTIONS, True, use_kernel, source)[0])
     check(launches == 1 and table == 1,
           f"the BS-multi Hessian run made {launches} K2 launches, not 1")
     return launches
@@ -1023,7 +1027,6 @@ MIXED_COUNTS = {"european": 39_400, "binary": 1_000, "basket": 1_000, "asian": 2
                 "barrier": 4_000, "american": 1_800, "flexicall": 700, "storage": 100}
 CVA_COUNTS = {k: v // 10 for k, v in MIXED_COUNTS.items()}
 MIXED_PATHS = 1_000  # main and presim paths of both benchmarks
-CVA_SCALE = 0.05  # the full CVA book waits for batching (ROADMAP queue 1)
 ORACLE_PATHS = (1 << 17, 1 << 18, 1 << 20)  # American and FlexiCall, barriers, binary and Asian
 # The CVA benchmark's bootstrapped hazard curve (cva_large_book.py:39-43).
 CVA_HAZARDS = {0.5: 0.006402303360855854, 1.0: 0.01553038972325307,
@@ -1128,7 +1131,7 @@ def mixed_book_parts(counts, by_family: bool = False, pkg=mt):
     return netting_sets, bs_multi_model(pkg), pkg.RiskMetrics(metrics=[pkg.PVMetric()])
 
 
-def cva_book_parts(scale: float = CVA_SCALE, pkg=mt, num_dates: int = 80):
+def cva_book_parts(scale: float = 1.0, pkg=mt, num_dates: int = 80):
     """(netting sets, model, metrics) of the CVA book (cva_large_book.py:46-87):
     the mixed book's families at a tenth, times ``scale``, on a ModelConfig
     of BS-multi and a CIR++ counterparty, MPoR 10/252, CVA on ``num_dates``
@@ -1218,7 +1221,7 @@ def euro_main_path():
     check(np.isfinite(pv) and se > 0 and abs(pv - cf) < 4 * se, f"pv {pv} vs closed form {cf}")
     torch.cuda.empty_cache()
 
-    diff, products = euro_book(EURO_DIFF_OPTIONS, differentiate=True)
+    diff, products = euro_book(EURO_OPTIONS, differentiate=True)
     before = hybrid_paths.launches
     torch.cuda.reset_peak_memory_stats()
     diff_results = diff.run_simulation()
@@ -1230,9 +1233,10 @@ def euro_main_path():
 
     diff_s = wall_seconds(run_diff)
     diff_peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[bs-multi european differentiated] {EURO_DIFF_OPTIONS} options x {NUM_PATHS} paths: "
-          f"warm wall {diff_s:.4f} s ({diff._grad_mode_resolved} mode), peak memory "
-          f"{diff_peak:.2f} GiB")
+    (batch,) = diff._batches
+    print(f"[bs-multi european differentiated] {EURO_OPTIONS} options x {NUM_PATHS} paths "
+          f"({len(batch._hinge_groups())} hinge-sum groups): warm wall {diff_s:.4f} s "
+          f"({diff._grad_mode_resolved} mode), peak memory {diff_peak:.2f} GiB")
     launches = hybrid_paths.launches  # this main path only
     print(f"  K2 launches: {launches} (1 per run, forward and differentiated)")
     cf, cf_grads = closed_form_sum(diff.model, products)
@@ -1246,7 +1250,7 @@ def euro_main_path():
     jac_k = np.array([float(grads[n]) for n in names])
     torch.cuda.empty_cache()
 
-    engine, _ = euro_book(EURO_DIFF_OPTIONS, differentiate=True, use_kernel=False)
+    engine, _ = euro_book(EURO_OPTIONS, differentiate=True, use_kernel=False)
     engine_results = None
 
     def run_engine():
@@ -1509,12 +1513,13 @@ def slice_controller(parts, num_paths, num_presim, scheme, differentiate=False, 
                                    use_kernel=use_kernel, device="cuda", **kw)
 
 
-def mixed_controller(by_family=False, differentiate=False, use_kernel="auto"):
+def mixed_controller(by_family=False, differentiate=False, use_kernel="auto", batch_products=True,
+                     scale=1.0):
     """The mixed PV book (pv_large_book.py:148-174) on the card: 1,000 main
     and 1,000 presim paths, ANALYTICAL, one substep, PV."""
-    parts = mixed_book_parts(MIXED_COUNTS, by_family)
+    parts = mixed_book_parts(scaled_counts(MIXED_COUNTS, scale), by_family)
     return slice_controller(parts, MIXED_PATHS, MIXED_PATHS, mt.SimulationScheme.ANALYTICAL,
-                            differentiate, use_kernel)
+                            differentiate, use_kernel, batch_products=batch_products)
 
 
 def route_gap(label, kernel, engine, names):
@@ -1545,13 +1550,47 @@ def route_gap(label, kernel, engine, names):
     np.testing.assert_allclose(jac_k, jac_e, rtol=1e-3, atol=1e-6, err_msg=label)
 
 
+def batched_vs_per_product(names):
+    """The mixed book forward with one netting set per family, family-batched
+    and per product (``batch_products=False``), on the same K2 draws (one
+    seed, one stream): each family's PV printed, the book's (their sum) to
+    rel 1e-9; cold and warm walls of both.  Returns the per-product run."""
+    out = {}
+    for batched in (True, False):
+        c = mixed_controller(by_family=True, batch_products=batched)
+        results = None
+
+        def run():
+            nonlocal results
+            results = c.run_simulation()
+
+        before = hybrid_paths.launches
+        cold, warm = wall_seconds(run), wall_seconds(run)
+        check(hybrid_paths.launches == before + 4, "a forward run did not launch K2 once a phase")
+        out[batched] = (np.array([pv_of(results, n)[0] for n in names]), cold, warm, c)
+    (pv_b, cold_b, warm_b, c_b), (pv_p, cold_p, warm_p, c_p) = out[True], out[False]
+    print(f"[mixed book, batched vs per product] one netting set per family, {len(c_b._batches)} "
+          f"batches ({len(c_b._batched_ids)} products) vs {len(c_p._exercise_scan_groups()[0])} "
+          f"exercise buckets and {len(c_p.products)} products one by one: cold walls "
+          f"{cold_b:.4f} / {cold_p:.4f} s, warm walls {warm_b:.4f} / {warm_p:.4f} s "
+          f"({warm_p / warm_b:.1f}x)")
+    rel = np.abs(pv_b - pv_p) / np.maximum(np.abs(pv_p), 1e-12)
+    for n, b, q, r in zip(names, pv_b, pv_p, rel):
+        print(f"  {n}: pv batched {b:.12g} per product {q:.12g} (rel {r:.2e})")
+    book_rel = abs(pv_b.sum() - pv_p.sum()) / abs(pv_p.sum())
+    print(f"  book pv batched {pv_b.sum():.12g} per product {pv_p.sum():.12g} (rel {book_rel:.2e})")
+    check(bool(np.isfinite(pv_b).all()), "non-finite batched family PVs")
+    np.testing.assert_allclose(pv_b.sum(), pv_p.sum(), rtol=1e-9, err_msg="batched vs per product")
+    return c_p
+
+
 def mixed_main_path(device, issue=None):
     """The 50,000-product mixed PV book on K2 (bs_multi exact, both
     phases), counts from 0: one netting set forward (cold and warm), then
     one netting set per family differentiated on the kernel route (the
     differentiated wall: reverse mode, P = 9 > V = 8) and on the engine
-    route.  Returns the K2 row of the book's shapes (its launches filled in)
-    and the run to profile."""
+    route, then forward batched against per product.  Returns the K2 row of
+    the book's shapes (its launches filled in) and the runs to profile."""
     reset_k2_counts()
     t0 = time.perf_counter()
     fwd = mixed_controller()
@@ -1559,6 +1598,7 @@ def mixed_main_path(device, issue=None):
     check(fwd._kernel_active, "the mixed book is not on the kernel path")
     families = dict(MIXED_COUNTS)
     buckets, _ = fwd._exercise_scan_groups()
+    batched = sum(len(b.products) for b in fwd._batches)
     results = None
 
     def run_fwd():
@@ -1573,7 +1613,8 @@ def mixed_main_path(device, issue=None):
     pv, se = pv_of(results, "mixed_book")
     print(f"[mixed book forward] {len(fwd.products)} products {families}, {MIXED_PATHS} + "
           f"{MIXED_PATHS} presim paths, {len(fwd.simulation_timeline)}-point timeline, "
-          f"{len(buckets)} exercise buckets ({sum(map(len, buckets))} products): set-up "
+          f"{len(fwd._batches)} family batches ({batched} products), {len(buckets)} exercise "
+          f"buckets ({sum(map(len, buckets))} products): set-up "
           f"{setup_s:.2f} s, cold wall {cold:.4f} s, warm wall {warm:.4f} s "
           f"({len(fwd.products) / warm:.0f} products/s), peak memory {fwd_peak:.2f} GiB")
     print(f"  pv {pv:.4f} se {se:.4f}; K2 launches per run: 2 (presim + mainsim)")
@@ -1589,13 +1630,12 @@ def mixed_main_path(device, issue=None):
     diff_peak = torch.cuda.max_memory_allocated() / 2**30
     check(hybrid_paths.launches == 6, "the differentiated run did not launch K2 once per phase")
     check(diff._grad_mode_resolved == "rev", "the mixed book's jacobian is not reverse mode")
-    launches = hybrid_paths.launches
     del diff
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     fam_e = mixed_controller(by_family=True, differentiate=True, use_kernel=False).run_simulation()
     engine_s = time.perf_counter() - t1
-    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    check(hybrid_paths.launches == 6, "the engine route launched K2")
     grads = np.sum([np.asarray(fam_k.get_derivatives(n, "pv"), dtype=float).ravel()
                     for n in names], axis=0)
     print(f"[mixed book differentiated] one netting set per family: wall {diff_s:.4f} s (rev mode: "
@@ -1606,17 +1646,23 @@ def mixed_main_path(device, issue=None):
         print(f"  {n}: {families[n]} products, pv kernel {pk:.6f} engine {pe:.6f} (se {sk:.2e})")
     check(bool(np.isfinite(grads).all()), "non-finite mixed-book gradient")
     route_gap("mixed book by family", fam_k, fam_e, names)
+    del fam_k, fam_e
+    torch.cuda.empty_cache()
+    per_product = batched_vs_per_product(names)
+    launches = hybrid_paths.launches
+    del per_product
+    torch.cuda.empty_cache()
     # the kernel against its plain version at the book's shapes, after the
     # counts were read: these launches are not the main path's
     row = model_rung("bs_multi exact, mixed book", fwd, device, issue)
     row["launches"] = launches
-    # the forward run only, of the book at scale 0.1 (the same families,
-    # paths and dates): the full book's 1.76M device events took ~3 minutes
-    # to read back, and a profiler run of the differentiated one more
-    small = slice_controller(mixed_book_parts(scaled_counts(MIXED_COUNTS, 0.1)), MIXED_PATHS,
-                             MIXED_PATHS, mt.SimulationScheme.ANALYTICAL)
+    # the batched forward run of the full book, and the per-product one at
+    # scale 0.1 (the same families, paths and dates: the full book's 1.76M
+    # device events took ~3 minutes to read back)
+    small = mixed_controller(batch_products=False, scale=0.1)
     small.run_simulation()  # cold: the request plan
-    return row, {"mixed book forward, scale 0.1": small.run_simulation}
+    return row, {"mixed book forward, batched": fwd.run_simulation,
+                 "mixed book forward, per product, scale 0.1": small.run_simulation}
 
 
 def crr_american_put(s0, k, r, sigma, maturity, steps=2000):
@@ -1882,17 +1928,64 @@ def storage_phase():
     return launches
 
 
-def cva_controller(use_kernel="auto"):
+def cva_controller(use_kernel="auto", differentiate=False):
     return slice_controller(cva_book_parts(), MIXED_PATHS, MIXED_PATHS, mt.SimulationScheme.EULER,
-                            use_kernel=use_kernel)
+                            differentiate, use_kernel)
+
+
+def cva_values(results):
+    """(CVA, its SE, its jacobian [P]) of a CVA-book run."""
+    name = f"cva[{CP}]"
+    cva = float(results.get_results("cva_book", name, evaluation_idx=0))
+    se = float(results.get_mc_error("cva_book", name, evaluation_idx=0))
+    jac = (np.array(list(results.get_derivatives("cva_book", name, evaluation_idx=0).values()),
+                    dtype=float) if results.derivatives else None)
+    return cva, se, jac
+
+
+def cva_family_parts():
+    """The CVA book with one netting set per family (one counterparty, MPoR
+    10/252): each family's CVA alone."""
+    (netting_set,), model, metrics = cva_book_parts()
+    families = {}
+    for p in netting_set.products:
+        families.setdefault(type(p).__name__, []).append(p)
+    return ([mt.NettingSet(name=f, products=ps, counterparty_id=CP, margin_period_of_risk=10 / 252)
+             for f, ps in families.items()], model, metrics)
+
+
+def cva_families_on_own_streams():
+    """Each family's CVA on the kernel route and on the engine route with
+    its own float64 draws (another stream: the kernel's Box-Muller runs in
+    float32), printed; informational, the routes are held to each other on
+    the kernel's draws."""
+    values = {}
+    for use_kernel in ("auto", False):
+        r = slice_controller(cva_family_parts(), MIXED_PATHS, MIXED_PATHS,
+                             mt.SimulationScheme.EULER, use_kernel=use_kernel).run_simulation()
+        values[use_kernel] = {n: float(r.get_results(n, f"cva[{CP}]", evaluation_idx=0))
+                              for n in r.get_netting_set_names()}
+    print("  one netting set per family, kernel route vs engine route on its own draws:")
+    for n, k in values["auto"].items():
+        e = values[False][n]
+        print(f"    {n}: cva kernel {k:.8f} engine {e:.8f} (rel {abs(k - e) / abs(e):.2e})")
 
 
 def cva_phase():
-    """The CVA book at scale 0.05 (cva_large_book.py:46-87) forward on K2
-    (bs_multi Euler + cirpp, both phases): CVA finite and positive, kernel
-    vs engine route 1e-4; returns K2's launches."""
+    """The full CVA book (cva_large_book.py:46-87: 5,000 products, MPoR
+    10/252, CVA on 80 dates) on K2 (bs_multi Euler + cirpp, both phases),
+    counts from 0: forward cold and warm, then differentiated in reverse
+    mode as the benchmark's ``--aad`` (P = 13 > V = 1); two K2 launches a
+    run; CVA finite and positive.  The kernel route against the engine route
+    fed the kernel's own draws (``draws_source``): the forward and the
+    differentiated CVA 1e-4, the jacobian rtol 1e-3, atol 1e-6.  On its own
+    float64 draws the engine's storage family alone moves the book's CVA
+    by ~1e-3 (its decisions flip with the float32 paths; PERF.md section
+    6), so each family's CVA on both routes is printed.  Returns K2's launches."""
     reset_k2_counts()
+    t0 = time.perf_counter()
     c = cva_controller()
+    setup_s = time.perf_counter() - t0
     check(c._kernel_active, "the CVA book is not on the kernel path")
     results = None
 
@@ -1900,24 +1993,64 @@ def cva_phase():
         nonlocal results
         results = c.run_simulation()
 
+    torch.cuda.reset_peak_memory_stats()
     cold = wall_seconds(run)
+    check(hybrid_paths.launches == 2, f"the CVA book made {hybrid_paths.launches} K2 launches, not 2")
+    warm = wall_seconds(run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cva, se, _ = cva_values(results)
+    buckets, _ = c._exercise_scan_groups()
+    print(f"[cva book] {len(c.products)} products ({len(c._batched_ids)} in {len(c._batches)} family "
+          f"batches, {sum(map(len, buckets))} in {len(buckets)} exercise buckets), {MIXED_PATHS} + "
+          f"{MIXED_PATHS} presim paths, {len(c.exposure_timeline)} exposure dates "
+          f"({len(c.metric_exposure_timeline)} metric dates), {len(c.simulation_timeline)}-point "
+          f"timeline: set-up {setup_s:.2f} s, cold wall {cold:.4f} s, warm wall {warm:.4f} s "
+          f"({len(c.products) / warm:.0f} products/s), peak memory {peak:.2f} GiB; CVA {cva:.6f} "
+          f"(se {se:.2e})")
+    check(np.isfinite(cva) and cva > 0 and se > 0, f"CVA {cva} se {se}")
+    del c
+    torch.cuda.empty_cache()
+
+    diff = cva_controller(differentiate=True)
+    draws = capture_draws(diff)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    diff_results = diff.run_simulation()
+    torch.cuda.synchronize()
+    diff_s = time.perf_counter() - t1
+    diff_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(hybrid_paths.launches == 6, "the differentiated CVA run did not launch K2 once per phase")
+    check(diff._grad_mode_resolved == "rev", "the CVA book's jacobian is not reverse mode")
     launches = hybrid_paths.launches
-    check(launches == 2, f"the CVA book made {launches} K2 launches, not 2")
-    name = f"cva[{CP}]"
-    cva = float(results.get_results("cva_book", name, evaluation_idx=0))
-    se = float(results.get_mc_error("cva_book", name, evaluation_idx=0))
-    engine = cva_controller(use_kernel=False).run_simulation()
+    names = diff.model.get_model_param_names()
+    d_cva, _, jac_k = cva_values(diff_results)
+    print(f"[cva book differentiated] wall {diff_s:.4f} s (rev mode: P = {len(names)} > V = 1), "
+          f"peak memory {diff_peak:.2f} GiB; " + ", ".join(
+              f"d CVA / d {n} {g:.6g}" for n, g in zip(names, jac_k) if "asset_0" in n or "rate" in n))
+    check(bool(np.isfinite(jac_k).all()) and np.abs(jac_k).max() > 0, "non-finite CVA jacobian")
+
+    source = draws_source(diff, draws)
+    del diff, draws
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    d_cva_e, _, jac_e = cva_values(slice_controller(
+        cva_book_parts(), MIXED_PATHS, MIXED_PATHS, mt.SimulationScheme.EULER, True,
+        use_kernel=False, noise_source=source).run_simulation())
+    engine_s = time.perf_counter() - t1
     check(hybrid_paths.launches == launches, "the engine route launched K2")
-    cva_e = float(engine.get_results("cva_book", name, evaluation_idx=0))
-    print(f"[cva book, scale {CVA_SCALE}] {len(c.products)} products, {MIXED_PATHS} + {MIXED_PATHS} "
-          f"presim paths, {len(c.exposure_timeline)} exposure dates: cold wall {cold:.4f} s, "
-          f"K2 launches {launches}; CVA {cva:.6f} (se {se:.2e}), engine "
-          f"route {cva_e:.6f} (rel {abs(cva - cva_e) / abs(cva_e):.2e})")
-    print(f"  the full {sum(CVA_COUNTS.values())}-product CVA book waits for batching "
-          "(ROADMAP queue 1): its per-product LSM fits would take minutes")
-    check(np.isfinite(cva) and cva > 0, f"CVA {cva}")
-    np.testing.assert_allclose(cva, cva_e, rtol=1e-4, err_msg="CVA kernel vs engine route")
-    return launches
+    jrel = float(np.max(np.abs(jac_k - jac_e) / np.maximum(np.abs(jac_e), 1e-6)))
+    print(f"  engine route on the kernel's draws, differentiated: {engine_s:.4f} s (cold); CVA "
+          f"{d_cva_e:.8f} vs kernel route forward {cva:.8f} (rel {abs(cva - d_cva_e) / d_cva_e:.2e}), "
+          f"differentiated {d_cva:.8f} (rel {abs(d_cva - d_cva_e) / d_cva_e:.2e}); jacobian max "
+          f"rel err {jrel:.3e}")
+    np.testing.assert_allclose(cva, d_cva_e, rtol=1e-4, err_msg="CVA kernel vs engine route")
+    np.testing.assert_allclose(d_cva, d_cva_e, rtol=1e-4, err_msg="CVA kernel vs engine route")
+    np.testing.assert_allclose(jac_k, jac_e, rtol=1e-3, atol=1e-6,
+                               err_msg="CVA jacobian kernel vs engine route")
+    torch.cuda.empty_cache()
+    cva_families_on_own_streams()
+    check(hybrid_paths.launches == launches + 2, "the family runs did not launch K2 once a phase")
+    return hybrid_paths.launches
 
 
 def k2_ladder(device, issue=None):
@@ -2254,7 +2387,7 @@ def split_main():
         "north star forward": warm_walls(lambda: ns_fwd, 8),
         "north star differentiated": warm_walls(lambda: north_star(NS_PATHS, True), 2),
         "bs-multi forward": warm_walls(lambda: euro_book(EURO_OPTIONS)[0], 3),
-        "bs-multi differentiated": warm_walls(lambda: euro_book(EURO_DIFF_OPTIONS, True)[0], 3),
+        "bs-multi differentiated": warm_walls(lambda: euro_book(EURO_OPTIONS, True)[0], 3),
     }
     for name, w in walls.items():
         print(f"[wall] {name}: {', '.join(f'{x:.4f}' for x in w)} s")

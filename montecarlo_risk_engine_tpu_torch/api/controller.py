@@ -1,20 +1,27 @@
 """SimulationController: the end-to-end Monte Carlo pipeline.
 
 Counterpart of ``montecarlo_risk_engine_tpu/api/controller.py`` with the JAX
-``batch_products=False, streaming=False`` semantics: the constructor checks,
-the unified simulation timeline with the internal exposure timeline (metric
-dates plus MPoR collateral query dates), the pre-simulation and the LSM
-fits of the exposure profiles, plane-mode simulation and request
-resolution, per-product valuation into netting sets with thresholds and
-MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE, CVA), analytic
-PV evaluation, first- and second-order sensitivities and the named result
-assembly.  Exercise products (Bermudan, American, FlexiCall, Storage) run
-their LSM fit and valuation as loops over stacked event tables, one per
-bucket of products of one static signature (controller.py:490-876);
-products without a scan step take the per-date unrolled path.  The exercise
-decisions stay hard: gradients of every order flow through the payoffs and
-the pre-simulation fits, never through the policy.  Batching and streaming
-are not ported yet.
+``streaming=False`` semantics: the constructor checks, the unified
+simulation timeline with the internal exposure timeline (metric dates plus
+MPoR collateral query dates), the pre-simulation and the LSM fits of the
+exposure profiles, plane-mode simulation and request resolution, valuation
+into netting sets with thresholds and MPoR collateral, the metrics (PV, CE,
+EPE, ENE, EEPE, PFE, CVA), analytic PV evaluation, first- and second-order
+sensitivities and the named result assembly.  Streaming is not ported yet.
+
+``batch_products=True`` (the default, as in the JAX package) values the
+products of each family as one batch (api/batching.py, controller.py:
+275-304): European, binary, basket, Asian and barrier options, Bermudan,
+American and FlexiCall options on an equity, bonds and swaps, each family
+fitted on the pre-simulation and valued on the main simulation as one
+table-driven computation.  The other products, and every product with
+``batch_products=False``, take the per-product path: exercise products
+(Bermudan, American, FlexiCall, Storage) run their LSM fit and valuation as
+loops over stacked event tables, one per bucket of products of one static
+signature (controller.py:490-876); products without a scan step take the
+per-date unrolled path.  The exercise decisions stay hard: gradients of
+every order flow through the payoffs and the pre-simulation fits, never
+through the policy.
 
 A PV metric of ``EvaluationType.ANALYTICAL`` takes each product's closed
 form where it has one and the Monte Carlo mean of the others
@@ -86,6 +93,13 @@ import torch
 from torch.func import jvp, vjp, vmap
 
 from montecarlo_risk_engine_tpu_torch import rng
+from montecarlo_risk_engine_tpu_torch.api.batching import (
+    EuropeanEquityBatch,
+    ExerciseEquityBatch,
+    ExposureContext,
+    ObservableTables,
+    plan_batches,
+)
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, real_dtype, resolve_device
 from montecarlo_risk_engine_tpu_torch.engine.engine import simulate_paths
@@ -142,6 +156,7 @@ class SimulationController:
         device=None,
         noise_source: Optional[Dict[int, Callable]] = None,
         bridge_source: Optional[Callable] = None,
+        batch_products: bool = True,
     ):
         self.risk_metrics = risk_metrics
         netting_sets = list(netting_sets)
@@ -240,6 +255,30 @@ class SimulationController:
                 "num_paths_presim must be > 0: the book needs least-squares fits (early "
                 f"exercise or LSM exposure profiles) for {offenders}, on pre-simulation paths")
 
+        # Family batches (controller.py:275-304): every product that the
+        # simulation values, grouped by family and static signature.
+        self._batches, self._batched_ids = [], set()
+        if batch_products:
+            batchable = [p for p in self.products if p.product_id not in self._analytic_ids]
+            self._batches, self._batched_ids = plan_batches(
+                batchable, [self.product_to_netting_set_idx[p.product_id] for p in batchable],
+                {t: i for i, t in enumerate(self.simulation_timeline)}, self.regression_function)
+            for batch in self._batches:
+                if (isinstance(batch, EuropeanEquityBatch)
+                        and self._can_use_analytic_exposure_for_product(batch.products[0])):
+                    batch.use_analytic_exposure = True
+                    batch.analytic_model = self.model
+        # The request plan resolves what the per-product path reads: the
+        # batches resolve their own rows (api/batching.ObservableTables), so
+        # their products' requests and the exposure-date spots of assets that
+        # only they hold would be resolved (and, under AD, carry tangents)
+        # for nothing.  The JAX package's compiler drops those resolutions.
+        self._plan_products = [p for p in self.products if id(p) not in self._batched_ids]
+        plan_assets = {a for p in self._plan_products for a in p.asset_ids}
+        self.spot_requests = {k: v for k, v in self.spot_requests.items() if k[1] in plan_assets}
+        if not self._plan_products:
+            self.numeraire_requests = {}
+
         self._kernel_active = self._decide_kernel()
         self._plan: Optional[RequestPlan] = None
 
@@ -331,7 +370,7 @@ class SimulationController:
         if self._plan is None:
             self._plan = RequestPlan(self.model)
             self._plan.collect_and_index_requests(
-                self.products, self.simulation_timeline, self._get_requests(),
+                self._plan_products, self.simulation_timeline, self._get_requests(),
                 self.metric_exposure_timeline)
 
     @staticmethod
@@ -387,8 +426,8 @@ class SimulationController:
         return {phase: self._kernel_ad_fns(n, phase)[1](params) for phase, n in self._phases()}
 
     def _simulate_and_resolve(self, params, num_paths: int, phase: int, kernel_noise=None):
-        """One simulation pass -> resolved handle lists over the [T, N, D]
-        state plane."""
+        """One simulation pass -> (resolved handle lists over the [T, N, D]
+        state plane, the batches' observable tables or None)."""
         if self._kernel_active:
             if self.differentiate:
                 _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
@@ -406,7 +445,8 @@ class SimulationController:
                 noise_source=(self.noise_source or {}).get(phase),
                 antithetic=self.antithetic, sampler=self.sampler, device=self.device,
             )
-        return self._plan.resolve_requests(params, states)
+        tables = ObservableTables(self.model, params, states, num_paths) if self._batches else None
+        return self._plan.resolve_requests(params, states), tables
 
     # -- LSM regression (controller.py:399-477) -------------------------------------
 
@@ -529,7 +569,7 @@ class SimulationController:
         by_key: Dict[tuple, List[Product]] = {}
         plain = []
         for product in self.products:
-            if not self._product_requires_regression(product):
+            if id(product) in self._batched_ids or not self._product_requires_regression(product):
                 continue
             if self._supports_exercise_scan(product):
                 statics = product.scan_bucket_statics()
@@ -698,14 +738,18 @@ class SimulationController:
         paths ``run_simulation`` draws (kernel route included)."""
         if not self._supports_exercise_scan(product):
             raise ValueError(f"{type(product).__name__} has no scan-executor path")
+        if id(product) in self._batched_ids:
+            raise ValueError(f"{type(product).__name__} is valued in a family batch: build the "
+                             "controller with batch_products=False to follow its states")
         self._ensure_plan()
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
         with torch.no_grad():
-            pre = self._simulate_and_resolve(params, self.num_paths_presim, rng.PHASE_PRESIM)
+            pre, _ = self._simulate_and_resolve(params, self.num_paths_presim, rng.PHASE_PRESIM)
             tables = self._exercise_event_tables([product], pre, self.num_paths_presim)
             coeffs = self._exercise_backward_scan([product], self.num_paths_presim, tables)
             del pre
-            main = self._simulate_and_resolve(params, self.num_paths_mainsim, rng.PHASE_MAINSIM)
+            main, _ = self._simulate_and_resolve(params, self.num_paths_mainsim,
+                                                 rng.PHASE_MAINSIM)
             tables = self._exercise_event_tables([product], main, self.num_paths_mainsim)
             _, _, states = self._exercise_forward_scan([product], self.num_paths_mainsim, coeffs,
                                                        tables, False, want_states=True)
@@ -801,12 +845,43 @@ class SimulationController:
                                            model=self.model))
         return results
 
-    def _evaluate_products(self, params, resolved, fits):
+    def _evaluate_batches(self, tables, cfs_acc, exp_acc):
+        """The family batches into their netting sets (controller.py:
+        1036-1082): cashflows [n_ns, N] added to ``cfs_acc``, exposure
+        profiles [T_exp, N] to ``exp_acc``; returns the new ``cfs_acc``."""
+        ctx = self._exposure_ctx()
+        need_cfs = self.risk_metrics.requires_discounted_cashflows()
+        need_exp = self.risk_metrics.requires_exposure_profiles()
+        num_ns = len(self.netting_sets)
+        for batch in self._batches:
+            exp_ns = None
+            if isinstance(batch, ExerciseEquityBatch):
+                seg = batch.ns_segments(tables.device)
+                cfs_p, exp_p = batch.evaluate(tables, ctx)
+                if need_cfs:
+                    cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
+                if need_exp and exp_p is not None:
+                    exp_ns = torch.zeros((exp_p.shape[0], num_ns, exp_p.shape[2]),
+                                         dtype=exp_p.dtype, device=exp_p.device).index_add(
+                                             1, seg, exp_p)
+            else:
+                if need_cfs:
+                    cfs_acc = cfs_acc + batch.segmented_cashflows(tables, num_ns,
+                                                                  self.num_paths_mainsim)
+                if need_exp:
+                    exp_ns = batch.exposure_contributions(tables, ctx)
+            if exp_ns is not None:
+                for ns_idx in sorted(set(batch.ns_idx.tolist())):
+                    exp_acc[ns_idx] = (exp_ns[:, ns_idx] if exp_acc[ns_idx] is None
+                                       else exp_acc[ns_idx] + exp_ns[:, ns_idx])
+        return cfs_acc
+
+    def _evaluate_products(self, params, resolved, fits, tables=None):
         """Every product into its netting set: the closed forms of the
         products that skip the simulation summed per metric
-        (controller.py:1139-1144), the exercise buckets reduced by one
-        ``index_add`` each (controller.py:1084-1133), the other products one
-        by one."""
+        (controller.py:1139-1144), the family batches, the exercise buckets
+        reduced by one ``index_add`` each (controller.py:1084-1133), the
+        other products one by one."""
         num_ns, n = len(self.netting_sets), self.num_paths_mainsim
         cfs_acc = torch.zeros((num_ns, n), dtype=real_dtype(), device=self.device)
         exp_acc: List[Optional[torch.Tensor]] = [None] * num_ns
@@ -823,6 +898,9 @@ class SimulationController:
                                                      params=params)[0][0]
                 acc[metric_idx] = acc[metric_idx] + value
         done = set(self._analytic_ids)
+        if self._batches and tables is not None:
+            cfs_acc = self._evaluate_batches(tables, cfs_acc, exp_acc)
+            done.update(p.product_id for p in self.products if id(p) in self._batched_ids)
         for products, coeffs in fits["buckets"]:
             cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
             ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
@@ -853,9 +931,26 @@ class SimulationController:
                                            has_pathwise[i])
                 for i, ns in enumerate(self.netting_sets)]
 
-    def _fit_regressions(self, params, resolved_pre):
+    def _exposure_ctx(self) -> Optional[ExposureContext]:
+        """The batches' exposure context, None for a book without exposure
+        profiles (controller.py:1175-1187)."""
+        if not self.risk_metrics.requires_exposure_profiles():
+            return None
+        return ExposureContext(
+            exposure_timeline=self.exposure_timeline, num_netting_sets=len(self.netting_sets),
+            regression_function=self.regression_function)
+
+    def _fit_regressions(self, params, resolved_pre, tables_pre=None):
         """Every fit on the pre-simulation (controller.py:1413-1432): the
-        exercise buckets' scans and the per-product exposure fits."""
+        family batches' fits, the exercise buckets' scans and the
+        per-product exposure fits."""
+        if self._batches:
+            ctx = self._exposure_ctx()
+            for batch in self._batches:
+                if isinstance(batch, ExerciseEquityBatch):
+                    batch.fit(tables_pre, ctx)
+                elif ctx is not None:
+                    batch.fit_exposure(tables_pre, ctx)
         buckets, plain = self._exercise_scan_groups()
         fits = {"buckets": [(b, self._fit_exercise_bucket(b, resolved_pre)) for b in buckets],
                 "exposure": {}}
@@ -865,17 +960,21 @@ class SimulationController:
         return fits
 
     def _compute(self, params, kernel_noise=None):
-        fits = {"buckets": [], "exposure": {}}
-        if self.requires_regression:
-            resolved_pre = self._simulate_and_resolve(params, self.num_paths_presim,
-                                                      rng.PHASE_PRESIM, kernel_noise)
-            fits = self._fit_regressions(params, resolved_pre)
-            del resolved_pre  # free the pre-simulation before the main one
-        resolved = None
-        if self._simulates():
-            resolved = self._simulate_and_resolve(params, self.num_paths_mainsim,
-                                                  rng.PHASE_MAINSIM, kernel_noise)
-        return self._evaluate_products(params, resolved, fits)
+        try:
+            fits = {"buckets": [], "exposure": {}}
+            if self.requires_regression:
+                resolved_pre, tables_pre = self._simulate_and_resolve(
+                    params, self.num_paths_presim, rng.PHASE_PRESIM, kernel_noise)
+                fits = self._fit_regressions(params, resolved_pre, tables_pre)
+                del resolved_pre, tables_pre  # free the pre-simulation before the main one
+            resolved = tables = None
+            if self._simulates():
+                resolved, tables = self._simulate_and_resolve(
+                    params, self.num_paths_mainsim, rng.PHASE_MAINSIM, kernel_noise)
+            return self._evaluate_products(params, resolved, fits, tables)
+        finally:
+            for batch in self._batches:
+                batch.release()
 
     @staticmethod
     def _flatten(nested):

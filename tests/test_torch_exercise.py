@@ -114,7 +114,7 @@ def test_bermudan_and_american_match_jax(differentiate, itm_only):
     pbook = bermudan_book(mt, itm_only)
     pc = mt.SimulationController(pbook, bs(mt), PV(mt), N, N, 2, mt.SimulationScheme.ANALYTICAL,
                                  differentiate=differentiate, device="cpu",
-                                 noise_source=injected(jc, 2, 1))
+                                 noise_source=injected(jc, 2, 1), batch_products=False)
     buckets, plain = pc._exercise_scan_groups()
     assert [len(b) for b in buckets] == [1, 2, 1] and not plain
     pr = pc.run_simulation()
@@ -167,7 +167,7 @@ def test_flexicall_and_storage_match_jax(differentiate):
     pbook = gas_book(mt)
     pc = mt.SimulationController(pbook, s2f(mt), PV(mt), N, N, 1, mt.SimulationScheme.ANALYTICAL,
                                  differentiate=differentiate, device="cpu",
-                                 noise_source=injected(jc, 1, 2))
+                                 noise_source=injected(jc, 1, 2), batch_products=False)
     pr = pc.run_simulation()
     compare(pr, jr, differentiate)
     if not differentiate:
@@ -213,7 +213,7 @@ def test_exposure_book_walks_regression_and_exposure_dates():
     jc._supports_exercise_scan = lambda p: False
     jr = jc.run_simulation()
     pc = mt.SimulationController(*book(mt), N, N, 1, mt.SimulationScheme.ANALYTICAL, device="cpu",
-                                 noise_source=injected(jc, 1, 1))
+                                 noise_source=injected(jc, 1, 1), batch_products=False)
     pc._supports_exercise_scan = lambda p: False
     assert pc._exercise_scan_groups()[1] == pc.products
     compare(pc.run_simulation(), jr, False)
@@ -237,7 +237,8 @@ def test_scan_matches_unrolled_and_bucket_matches_one_by_one():
         netting_sets = [mt.NettingSet(name=f"p{i}", products=[p])
                         for i, p in enumerate(products())]
         c = mt.SimulationController(netting_sets, s2f(mt), PV(mt), n, n, 1,
-                                    mt.SimulationScheme.ANALYTICAL, device="cpu")
+                                    mt.SimulationScheme.ANALYTICAL, device="cpu",
+                                    batch_products=False)
         if mode == "unrolled":
             c._supports_exercise_scan = lambda p: False
         elif mode == "alone":

@@ -144,7 +144,7 @@ def test_hessian_matches_jax_on_injected_noise(name):
     check_against_jax(*BOOKS[name])
 
 
-def check_against_jax(make, scheme, steps, presim, sim_dim, mode):
+def check_against_jax(make, scheme, steps, presim, sim_dim, mode, batch_products=True):
     """The port's Hessians (and, on the reverse branch, its functional
     jacobian) against the JAX controller's on the JAX engine's draws."""
     n = 512
@@ -156,7 +156,8 @@ def check_against_jax(make, scheme, steps, presim, sim_dim, mode):
     noise = {ph: jax_engine_normals(0, ph, len(jc.simulation_timeline) * steps, n, sim_dim)
              for ph in phases}
     pc = mt.SimulationController(*make(mt), n, presim, steps, mt.SimulationScheme[scheme],
-                                 differentiate=True, device="cpu", noise_source=noise)
+                                 differentiate=True, device="cpu", noise_source=noise,
+                                 batch_products=batch_products)
     pc.compute_higher_derivatives()
     pr = pc.run_simulation()
     assert pc._grad_mode_resolved == mode

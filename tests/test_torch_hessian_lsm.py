@@ -50,4 +50,6 @@ BOOKS = {
 
 @pytest.mark.parametrize("name", list(BOOKS))
 def test_lsm_hessian_matches_jax_on_injected_noise(name):
-    check_against_jax(*BOOKS[name])
+    # the JAX controller runs per product (JAX_FLAGS), so the port does too:
+    # the batched power-sum fit differs from the per-product fit by rounding
+    check_against_jax(*BOOKS[name], batch_products=False)

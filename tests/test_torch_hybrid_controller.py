@@ -100,7 +100,8 @@ def test_north_star_matches_jax_controller_on_injected_noise(differentiate):
     model, netting_sets, metrics = reduced_north_star(_PortPkg, port_pkg())
     pc = mt.SimulationController(netting_sets, model, metrics, n, n, 1, mt.SimulationScheme.EULER,
                                  differentiate=differentiate, device="cpu",
-                                 noise_source=_injected(jc.simulation_timeline, n, 3))
+                                 noise_source=_injected(jc.simulation_timeline, n, 3),
+                                 batch_products=False)
     assert not pc._kernel_active
     assert pc.simulation_timeline == jc.simulation_timeline
     assert pc.exposure_timeline == jc.exposure_timeline and len(pc.exposure_timeline) == 17

@@ -132,7 +132,7 @@ def test_dry_run_book_matches_jax_controller(differentiate):
     jr = jc.run_simulation()
     pc = mt.SimulationController(*dry_run_book(mt), n, n, 1, mt.SimulationScheme.EULER,
                                  differentiate=differentiate, device="cpu",
-                                 noise_source=injected(jc, n, 3))
+                                 noise_source=injected(jc, n, 3), batch_products=False)
     pr = pc.run_simulation()
     if differentiate:
         assert pc._grad_mode_resolved == "fwd"  # P = 11 <= V = 1 + 5 + 5
