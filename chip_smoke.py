@@ -42,7 +42,15 @@ plain PyTorch version:
     (``HESS_NS_PATHS``; 1e6 would keep the smoke past its time, each row's
     peak memory is printed for the full-width run still to make); and the
     analytic route (EvaluationType.ANALYTICAL, gamma and vomma against the
-    closed forms).
+    closed forms);
+  * samplers and streaming: the north-star book at 16,777,216 main and
+    131,072 presim paths with ``streaming=True`` (the engine and the
+    streaming metric pipeline), forward and differentiated; streaming
+    against the plane on one stream at 2^20; kernel-streaming AD on K2 at
+    2^22 (cut from 2^24: 342 emitted rows and the frozen draws per phase,
+    PERF.md section 4); the Heston book with ``sampler="sobol"`` and the
+    Brownian bridge, a Black-Scholes call's Sobol error against the
+    pseudo-random SE, and the BS-multi book with antithetic pairs.
 
 Phases:
 
@@ -74,7 +82,11 @@ Phases:
      kernel-route values and CVA/EPE jacobian against the engine route's
      on the same stream;
   7. the other K2 routes, each with its counts from 0 and its own oracle;
-     then the mixed book (forward cold and warm; one netting set per
+  7a. kernel-streaming AD on K2 at 2^22, with the card to itself, its
+     counts from 0 (one K2 and one prologue launch per phase), against the
+     engine's streaming route fed the kernel's draws (values 1e-4,
+     jacobians rtol 1e-3, atol 1e-6);
+  7b. the mixed book (forward cold and warm; one netting set per
      family differentiated on both routes: the book's PV 1e-4, its
      jacobian rtol 1e-3, the families that miss printed; one netting set
      per family forward, batched against per-product on the same K2
@@ -94,10 +106,20 @@ Phases:
      and cross term against the engine at half the paths, and the engine on
      the same stream and paths within rtol 1e-3; the Hessian walls, peak
      memory and each row's wall and peak printed; the analytic route's
-     gamma and vomma against the closed forms to 1e-9;
+     gamma and vomma against the closed forms to 1e-9; then, in the same
+     process, the other samplers and streaming phases: the north star at
+     16,777,216 paths, forward (cold and warm) and differentiated with the
+     metric stream on (CVA against the JAX 16M value within 4 combined SE,
+     else 1 %; the peak below the plane route's own estimate; finite
+     derivatives); at 2^20 the metric stream and emission alone against
+     the plane (values rtol 1e-10, jacobians rtol 1e-8, atol 1e-12) and the
+     BS-multi book streaming against the plane (1e-10); the Sobol and
+     bridge Heston books (4 SE + 0.05 of the CF), the BS call's Sobol error
+     below the pseudo-random SE, the antithetic BS-multi book (4 SE; deltas
+     and vegas 2 %), each differentiated once;
   8. profile the BS-multi book and the mixed book's forward run, batched
-     and at full size, and per product at scale 0.1 (after all the walls: a
-     profiler run slows the launches that follow it);
+     and per product, at scale 0.1 (after all the walls: a profiler run
+     slows the launches that follow it);
   9. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
@@ -220,12 +242,12 @@ def slice_book():
     return model, netting_sets
 
 
-def controller(differentiate: bool, use_kernel="auto", noise_source=None):
+def controller(differentiate: bool, use_kernel="auto", noise_source=None, **kw):
     model, netting_sets = slice_book()
     return mt.SimulationController(
         netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), NUM_PATHS, 0, NUM_STEPS,
         mt.SimulationScheme.QE, differentiate=differentiate, root_seed=SEED,
-        use_kernel=use_kernel, device="cuda", noise_source=noise_source,
+        use_kernel=use_kernel, device="cuda", noise_source=noise_source, **kw,
     ), model, netting_sets
 
 
@@ -245,7 +267,7 @@ def live_substeps(timeline, steps: int) -> int:
 
 
 def north_star(num_paths: int, differentiate: bool, use_kernel="auto", num_paths_presim=None,
-               grad_chunk_size: int = 8, noise_source=None):
+               grad_chunk_size: int = 8, noise_source=None, **kw):
     """The north-star book (benchmarks/north_star.py:47-96) on the card."""
     model = mt.ModelConfig(
         [mt.VasicekModel(0.0, rate=0.03, mean=0.045, mean_reversion_speed=0.3, volatility=0.012,
@@ -272,7 +294,7 @@ def north_star(num_paths: int, differentiate: bool, use_kernel="auto", num_paths
         [netting_set], model, metrics, num_paths,
         num_paths if num_paths_presim is None else num_paths_presim, 1, mt.SimulationScheme.EULER,
         differentiate=differentiate, grad_chunk_size=grad_chunk_size, use_kernel=use_kernel,
-        device="cuda", noise_source=noise_source)
+        device="cuda", noise_source=noise_source, **kw)
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -755,6 +777,328 @@ def north_star_main_path():
     return launches
 
 
+# -- samplers and streaming ----------------------------------------------------------
+
+STREAM_PATHS = 1 << 24         # the JAX package's streaming width (north_star_16m_mesh.py)
+STREAM_CHECK_PATHS = 1 << 20   # streaming against the plane on one stream
+STREAM_CHECK_CHUNK = 4         # its jacobians' tangents a sweep
+KSTREAM_PATHS = 1 << 22        # kernel-streaming AD on K2, cut from 2^24 (PERF.md section 4)
+# Memory model of a differentiated streaming run, in units of one [N, D]
+# float64 state (PERF.md section 6): the primal's residents and each forward
+# tangent's.  A first model of 10 + 8 per tangent over-predicted; 23.16 GiB
+# measured at chunk 6 and 2^24 paths (37 units, NVIDIA H100 80GB HBM3)
+# refits it to 10 + 5.
+STREAM_PRIMAL_ND, STREAM_TANGENT_ND = 10, 5
+KSTREAM_CHUNK = 1              # kernel-streaming AD: [342, N] rows per tangent
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def plane_estimate_gib(c) -> float:
+    """The plane route's own estimate of its state plane at this width: the
+    [T, N, D] plane of the larger phase in float64 (the streaming decision's
+    plane bytes)."""
+    rows = len(c.simulation_timeline) * c.model.state_dim
+    return rows * max(c.num_paths_mainsim, c.num_paths_presim) * 8 / 2**30
+
+
+def balanced_chunk(num_params: int, widest: int) -> int:
+    """The tangent chunk of the fewest sweeps at most ``widest`` wide,
+    balanced across them."""
+    sweeps = -(-num_params // max(1, min(widest, num_params)))
+    return -(-num_params // sweeps)
+
+
+def stream_chunk(num_paths: int, state_dim: int, num_params: int) -> int:
+    """``grad_chunk_size`` of a differentiated metric-streaming run from the
+    memory model: tangents of STREAM_TANGENT_ND [N, D] states each into
+    three quarters of the card beside the primal's STREAM_PRIMAL_ND."""
+    nd = num_paths * state_dim * 8
+    budget = 0.75 * torch.cuda.get_device_properties(0).total_memory
+    return balanced_chunk(num_params, int((budget - STREAM_PRIMAL_ND * nd) // (STREAM_TANGENT_ND * nd)))
+
+
+def north_star_streaming():
+    """Phases S1-S2: the north star at STREAM_PATHS main and NS_PRESIM_FIT
+    presim paths with ``streaming=True`` (the engine with the metric stream
+    on), forward (cold and warm) and differentiated (forward mode, P = 11,
+    ``use_kernel=False``): CVA against the JAX 16M reference (4 combined SE,
+    else 1 %), EPE and PFE at five dates, finite derivatives, walls and
+    peaks, the peak below the plane route's own estimate."""
+    launches = hybrid_paths.launches
+    fwd = north_star(STREAM_PATHS, False, num_paths_presim=NS_PRESIM_FIT, streaming=True)
+    check(not fwd._kernel_active, "streaming=True forward took the kernel")
+    t0 = time.perf_counter()
+    results = fwd.run_simulation()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    check(fwd._metric_stream is not None, f"metric stream off: {fwd.metric_stream_reason}")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_fwd():
+        nonlocal results
+        results = fwd.run_simulation()
+
+    warm = wall_seconds(run_fwd)
+    peak, plane = peak_gib(), plane_estimate_gib(fwd)
+    print(f"[north-star streaming forward] {STREAM_PATHS} + {NS_PRESIM_FIT} presim paths, metric "
+          f"stream on, {fwd._emission_schedule.num_emitted_rows()} emitted rows a run: cold wall "
+          f"{cold:.4f} s, warm wall {warm:.4f} s, peak memory {peak:.2f} GiB (the plane route's "
+          f"own estimate of its plane: {plane:.2f} GiB)")
+    check(peak < plane, f"streaming peak {peak:.2f} GiB is not below the plane's {plane:.2f} GiB")
+    values = ns_values(results)
+    cva, cva_se = (float(x[0]) for x in values[f"cva[{CP}]"])
+    epe, epe_se = values["epe"]
+    pfe, pfe_se = values["pfe[0.95]"]
+    for i in (0, 4, 8, 16, 28):
+        print(f"  t={fwd.metric_exposure_timeline[i]:.2f}: epe {epe[i]:.6f} (se {epe_se[i]:.2e}) "
+              f"pfe {pfe[i]:.6f} (se {pfe_se[i]:.2e})")
+    check(all(np.isfinite(x).all() for pair in values.values() for x in pair), "non-finite values")
+    gap = abs(cva - CVA_REF) / (cva_se ** 2 + CVA_REF_SE ** 2) ** 0.5
+    rel = abs(cva - CVA_REF) / CVA_REF
+    print(f"  CVA {cva:.7f} (se {cva_se:.2e}) vs JAX 16M {CVA_REF} (se {CVA_REF_SE:.1e}): "
+          f"{gap:.2f} combined SE, {rel:.3%}")
+    check(gap <= 4 or rel <= 0.01, f"streaming CVA {cva} is {rel:.3%} from the reference")
+    del fwd, results
+    torch.cuda.empty_cache()
+
+    chunk = stream_chunk(STREAM_PATHS, 5, 11)
+    diff = north_star(STREAM_PATHS, True, use_kernel=False, num_paths_presim=NS_PRESIM_FIT,
+                      streaming=True, grad_chunk_size=chunk)
+    diff_results, diff_s, diff_peak = run_timed(diff)
+    check(diff._metric_stream is not None, "differentiated metric stream off")
+    print(f"[north-star streaming differentiated] {STREAM_PATHS} paths, {diff._grad_mode_resolved} "
+          f"mode, chunk {chunk} (model: {STREAM_PRIMAL_ND} + {STREAM_TANGENT_ND} x chunk [N, D] "
+          f"f64 states, {(STREAM_PRIMAL_ND + STREAM_TANGENT_ND * chunk) * STREAM_PATHS * 40 / 2**30:.1f}"
+          f" GiB): wall {diff_s:.4f} s, peak memory {diff_peak:.2f} GiB")
+    grads = diff_results.get_derivatives("north_star", f"cva[{CP}]", evaluation_idx=0)
+    print(f"  dCVA/d irs.rate {float(grads['irs.rate']):.6f}, dCVA/d eq.spot "
+          f"{float(grads['eq.spot']):.6f}")
+    for metric in ns_values(diff_results):
+        check(bool(np.isfinite(ns_jacobian(diff_results, metric)).all()),
+              f"non-finite {metric} jacobian")
+    check(hybrid_paths.launches == launches, "the streaming engine route launched K2")
+    del diff, diff_results
+    torch.cuda.empty_cache()
+
+
+def streaming_vs_plane():
+    """Phase S3: on one stream at STREAM_CHECK_PATHS, engine route: the north
+    star forward and differentiated, ``streaming=True`` with the metric
+    stream and with emission alone against ``streaming=False`` (values rtol
+    1e-10; jacobians rtol 1e-8, atol 1e-12), and the BS-multi book forward
+    streaming against the plane (PV rtol 1e-10).  The presim takes
+    NS_PRESIM_FIT paths and the jacobians STREAM_CHECK_CHUNK tangents a
+    sweep, so each run stays under ~30 GB beside 7b."""
+    launches = hybrid_paths.launches
+    for differentiate in (False, True):
+        runs = {}
+        for label, kw in (("plane", dict(streaming=False)),
+                          ("metric stream", dict(streaming=True)),
+                          ("emission", dict(streaming=True, metric_streaming=False))):
+            c = north_star(STREAM_CHECK_PATHS, differentiate, use_kernel=False,
+                           num_paths_presim=NS_PRESIM_FIT, grad_chunk_size=STREAM_CHECK_CHUNK,
+                           **kw)
+            runs[label], wall, peak = run_timed(c)
+            streams = (c._emission_schedule is not None, c._metric_stream is not None)
+            check(streams == {"plane": (False, False), "metric stream": (True, True),
+                              "emission": (True, False)}[label], f"{label}: wrong route {streams}")
+            print(f"[north-star {'differentiated' if differentiate else 'forward'}, {label}] "
+                  f"{STREAM_CHECK_PATHS} + {NS_PRESIM_FIT} presim paths: wall {wall:.4f} s, peak "
+                  f"memory {peak:.2f} GiB")
+            del c
+            torch.cuda.empty_cache()
+        plane = runs.pop("plane")
+        for label, res in runs.items():
+            for metric, (vals, _) in ns_values(plane).items():
+                got = ns_values(res)[metric][0]
+                rel = float(np.max(np.abs(got - vals) / np.maximum(np.abs(vals), 1e-300)))
+                print(f"  {label} vs plane, {metric}: values max rel err {rel:.3e}")
+                np.testing.assert_allclose(got, vals, rtol=1e-10, atol=1e-13, err_msg=metric)
+                if differentiate:
+                    jp, js = ns_jacobian(plane, metric), ns_jacobian(res, metric)
+                    jrel = float(np.max(np.abs(js - jp) / np.maximum(np.abs(jp), 1e-12)))
+                    print(f"  {label} vs plane, {metric}: jacobian max rel err {jrel:.3e}")
+                    np.testing.assert_allclose(js, jp, rtol=1e-8, atol=1e-12, err_msg=metric)
+    pvs = {}
+    for streaming in (False, True):
+        c, _ = euro_book(EURO_OPTIONS, use_kernel=False, streaming=streaming)
+        res, wall, _ = run_timed(c)
+        check((c._emission_schedule is not None) == streaming, "bs-multi route")
+        pvs[streaming] = pv_of(res)[0]
+        print(f"[bs-multi european forward, {'streaming' if streaming else 'plane'}, engine] "
+              f"wall {wall:.4f} s, pv {pvs[streaming]:.6f}")
+        del c
+    np.testing.assert_allclose(pvs[True], pvs[False], rtol=1e-10)
+    check(hybrid_paths.launches == launches, "the engine route launched K2")
+    torch.cuda.empty_cache()
+
+
+def kernel_streaming():
+    """Phase S4: kernel-streaming AD on K2: the north star differentiated
+    with ``streaming=True`` on the kernel route at KSTREAM_PATHS main and
+    NS_PRESIM_FIT presim paths, counts from 0 (one K2 and one prologue
+    launch per phase), against the engine's streaming route fed the
+    kernel's own draws (values 1e-4; jacobians rtol 1e-3, atol 1e-6).
+    Returns K2's and the prologue's launches."""
+    reset_k2_counts()
+    kernel = north_star(KSTREAM_PATHS, True, num_paths_presim=NS_PRESIM_FIT, streaming=True,
+                        grad_chunk_size=KSTREAM_CHUNK)
+    draws = capture_draws(kernel)
+    kr, wall, peak = run_timed(kernel)
+    check(kernel._kernel_active and kernel._emission_schedule is not None,
+          "not on kernel-streaming AD")
+    launches = (hybrid_paths.launches, k2_module.hybrid_table.launches)
+    print(f"[north-star kernel-streaming AD] {KSTREAM_PATHS} + {NS_PRESIM_FIT} presim paths, "
+          f"{kernel._emission_schedule.num_emitted_rows()} emitted rows a run over "
+          f"{len(kernel.simulation_timeline)} points of D = {kernel.model.state_dim}, chunk "
+          f"{KSTREAM_CHUNK}: wall {wall:.4f} s ({kernel._grad_mode_resolved} mode), peak memory "
+          f"{peak:.2f} GiB; K2 launches {launches[0]}, prologue {launches[1]}")
+    check(launches == (2, 2), f"kernel-streaming AD launched K2 / its prologue {launches} times")
+    source = draws_source(kernel, draws)
+    del kernel, draws
+    torch.cuda.empty_cache()
+    engine = north_star(KSTREAM_PATHS, True, use_kernel=False, num_paths_presim=NS_PRESIM_FIT,
+                        streaming=True, metric_streaming=False, grad_chunk_size=KSTREAM_CHUNK,
+                        noise_source=source)
+    er, wall, peak = run_timed(engine)
+    print(f"[north-star streaming, engine route on the kernel's draws] wall {wall:.4f} s, peak "
+          f"memory {peak:.2f} GiB")
+    for metric in ns_values(kr):
+        kv, ev = ns_values(kr)[metric][0], ns_values(er)[metric][0]
+        rel = float(np.max(np.abs(kv - ev) / np.maximum(np.abs(ev), 1e-12)))
+        jk, je = ns_jacobian(kr, metric), ns_jacobian(er, metric)
+        jrel = float(np.max(np.abs(jk - je) / np.maximum(np.abs(je), 1e-6)))
+        print(f"  {metric}: kernel vs engine streaming values max rel err {rel:.3e}, jacobian "
+              f"{jrel:.3e}")
+        np.testing.assert_allclose(kv, ev, rtol=1e-4, atol=1e-8, err_msg=metric)
+        np.testing.assert_allclose(jk, je, rtol=1e-3, atol=1e-6, err_msg=metric)
+    check((hybrid_paths.launches, k2_module.hybrid_table.launches) == launches,
+          "the engine route launched K2")
+    del engine, source, kr, er
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bs_call(sampler, use_kernel=False, differentiate=False):
+    """The call of examples/pv_sobol_convergence.py: S = K = 100, r 3 %,
+    sigma 20 %, T = 2, ANALYTICAL, 4 substeps."""
+    model = mt.BlackScholesModel(0.0, spot=100.0, rate=0.03, sigma=0.2, asset_id="eq")
+    option = mt.EuropeanOption(mt.Equity("eq"), 2.0, 100.0, CALL, asset_id="eq")
+    return book(model, [mt.NettingSet(name="opt", products=[option])],
+                mt.SimulationScheme.ANALYTICAL, 4, differentiate, use_kernel, sampler=sampler)
+
+
+def run_timed(c):
+    """(results, wall, peak GiB) of one run of a controller."""
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    wall = wall_seconds(lambda: out.setdefault("results", c.run_simulation()))
+    return out["results"], wall, peak_gib()
+
+
+def sampler_phases():
+    """Phase S5: the samplers at full width on the engine route: the
+    Heston-QE book with ``sampler="sobol"`` and with the Brownian bridge
+    (PVs within 4 SE + 0.05 of the characteristic function), the BS call's
+    Sobol error below the pseudo-random run's SE, the BS-multi book with
+    antithetic pairs (PV within 4 SE of the closed-form sum; deltas and vegas
+    within 2 %); each differentiated once, walls and peaks printed."""
+    launches = (hybrid_paths.launches, heston_qe_paths.launches, heston_qe_paths.emit_launches)
+    for kw in (dict(sampler="sobol"), dict(sampler="sobol", qmc_bridge=True)):
+        c, model, netting_sets = controller(False, **kw)
+        check(not c._kernel_active, "the Sobol sampler took the kernel")
+        res, wall, peak = run_timed(c)
+        label = "sobol" + (" + bridge" if kw.get("qmc_bridge") else "")
+        print(f"[heston {label}] {NUM_PATHS} paths x {len(MATURITIES)} points x {NUM_STEPS} "
+              f"substeps: wall {wall:.4f} s, peak memory {peak:.2f} GiB")
+        for ns in netting_sets:
+            pv, se = pv_of(res, ns.name)
+            cf = ns.products[0].compute_pv_analytically_heston(model)
+            print(f"  {ns.name}: pv {pv:.6f} se {se:.6f} cf {cf:.6f} |pv-cf|/se "
+                  f"{abs(pv - cf) / se:.2f}")
+            check(np.isfinite(pv) and se > 0 and abs(pv - cf) < 4 * se + 0.05, f"{label} {ns.name}")
+        del c
+    diff, model, netting_sets = controller(True, sampler="sobol", qmc_bridge=True)
+    res, wall, peak = run_timed(diff)
+    jac = np.array([[res.get_derivatives(ns.name, "pv", param=p, evaluation_idx=0)
+                     for p in model.get_model_param_names()] for ns in netting_sets])
+    print(f"[heston sobol + bridge differentiated] wall {wall:.4f} s ({diff._grad_mode_resolved} "
+          f"mode), peak memory {peak:.2f} GiB; 1y delta {jac[-1, 0]:.6f}")
+    check(bool(np.isfinite(jac).all()), "non-finite Sobol jacobian")
+    del diff
+    torch.cuda.empty_cache()
+
+    s0, k, r, sigma, tau = 100.0, 100.0, 0.03, 0.2, 2.0
+    d1 = (math.log(s0 / k) + (r + 0.5 * sigma ** 2) * tau) / (sigma * math.sqrt(tau))
+    ncdf = lambda x: 0.5 * math.erfc(-x / math.sqrt(2.0))
+    ref = s0 * ncdf(d1) - k * math.exp(-r * tau) * ncdf(d1 - sigma * math.sqrt(tau))
+    out = {}
+    for sampler in ("pseudo", "sobol"):
+        res, wall, _ = run_timed(bs_call(sampler))
+        out[sampler] = pv_of(res, "opt")
+        print(f"[bs call, {sampler}] {NUM_PATHS} paths: pv {out[sampler][0]:.6f} se "
+              f"{out[sampler][1]:.2e}, error {abs(out[sampler][0] - ref):.2e} vs closed form "
+              f"{ref:.6f}, wall {wall:.4f} s")
+    check(abs(out["sobol"][0] - ref) < out["pseudo"][1],
+          "the Sobol error is not below the pseudo-random SE")
+    res, wall, peak = run_timed(bs_call("sobol", differentiate=True))
+    grads = res.get_derivatives("opt", "pv", evaluation_idx=0)
+    print(f"[bs call, sobol, differentiated] wall {wall:.4f} s, peak memory {peak:.2f} GiB, "
+          f"delta {float(grads['spot']):.6f} vega {float(grads['volatility']):.6f}")
+    check(all(np.isfinite(float(g)) for g in grads.values()), "non-finite Sobol call gradient")
+
+    fwd, products = euro_book(EURO_OPTIONS, antithetic=True)
+    check(not fwd._kernel_active, "antithetic pairs took the kernel")
+    res, wall, peak = run_timed(fwd)
+    pv, se = pv_of(res)
+    cf, _ = closed_form_sum(fwd.model, products)
+    print(f"[bs-multi european antithetic forward] wall {wall:.4f} s, peak memory {peak:.2f} GiB; "
+          f"pv {pv:.4f} se {se:.4f} vs closed-form sum {cf:.4f}: {abs(pv - cf) / se:.2f} SE")
+    check(np.isfinite(pv) and se > 0 and abs(pv - cf) < 4 * se, "antithetic pv vs closed form")
+    del fwd
+    diff, products = euro_book(EURO_OPTIONS, differentiate=True, antithetic=True)
+    res, wall, peak = run_timed(diff)
+    print(f"[bs-multi european antithetic differentiated] wall {wall:.4f} s "
+          f"({diff._grad_mode_resolved} mode), peak memory {peak:.2f} GiB")
+    cf, cf_grads = closed_form_sum(diff.model, products)
+    grads = res.get_derivatives("european_book", "pv", evaluation_idx=0)
+    for name in diff.model.get_model_param_names()[:8]:
+        mc, ref_g = float(grads[name]), cf_grads[name]
+        gap = abs(mc - ref_g) / abs(ref_g)
+        print(f"  d pv / d {name}: pathwise {mc:.4f} vs closed forms {ref_g:.4f} (gap {gap:.3%})")
+        check(gap < 0.02, f"antithetic d pv / d {name} is {gap:.3%} from the closed forms")
+    del diff
+    torch.cuda.empty_cache()
+    check(launches == (hybrid_paths.launches, heston_qe_paths.launches,
+                       heston_qe_paths.emit_launches), "a sampler book launched a kernel")
+
+
+def streaming_phases():
+    """The samplers and streaming phases that launch no kernel: the north
+    star at 16.8M paths, streaming against the plane, the sampler books,
+    then the 16.8M-path forward run's device busy share (the smoke runs
+    them in its second process after the Hessians, beside 7b; each stays
+    under ~45 GB)."""
+    t0 = time.perf_counter()
+    north_star_streaming()
+    print(f"[time] 16.8M-path streaming phases: {time.perf_counter() - t0:.1f} s")
+    streaming_vs_plane()
+    print(f"[time] streaming vs plane: {time.perf_counter() - t0:.1f} s")
+    sampler_phases()
+    print(f"[time] samplers: {time.perf_counter() - t0:.1f} s")
+    # last: a profiler run slows what follows it in the process
+    fwd = north_star(STREAM_PATHS, False, num_paths_presim=NS_PRESIM_FIT, streaming=True)
+    fwd.run_simulation()
+    profile_run(f"north star streaming forward, {STREAM_PATHS} paths", fwd.run_simulation,
+                host_ops=False)
+    del fwd
+    torch.cuda.empty_cache()
+    print(f"[time] streaming profile: {time.perf_counter() - t0:.1f} s")
+
+
 # -- second-order sensitivities --------------------------------------------------------
 
 HESS_NS_PATHS = 1 << 17  # north-star Hessian depth (main and presim paths), cut from 1e6
@@ -1158,17 +1502,19 @@ def euro_options(num_options: int):
 
 
 def book(model, netting_sets, scheme, num_steps, differentiate=False, use_kernel="auto",
-         noise_source=None):
+         noise_source=None, **kw):
     return mt.SimulationController(netting_sets, model, PV(), NUM_PATHS, 0, num_steps, scheme,
                                    differentiate=differentiate, root_seed=SEED,
                                    use_kernel=use_kernel, device="cuda",
-                                   noise_source=noise_source)
+                                   noise_source=noise_source, **kw)
 
 
-def euro_book(num_options: int, differentiate=False, use_kernel="auto", noise_source=None):
+def euro_book(num_options: int, differentiate=False, use_kernel="auto", noise_source=None,
+              **kw):
     products = euro_options(num_options)
     return book(bs_multi_model(), [mt.NettingSet(name="european_book", products=products)],
-                mt.SimulationScheme.ANALYTICAL, 1, differentiate, use_kernel, noise_source), products
+                mt.SimulationScheme.ANALYTICAL, 1, differentiate, use_kernel, noise_source,
+                **kw), products
 
 
 def closed_form_sum(model, products):
@@ -1656,12 +2002,14 @@ def mixed_main_path(device, issue=None):
     # counts were read: these launches are not the main path's
     row = model_rung("bs_multi exact, mixed book", fwd, device, issue)
     row["launches"] = launches
-    # the batched forward run of the full book, and the per-product one at
-    # scale 0.1 (the same families, paths and dates: the full book's 1.76M
-    # device events took ~3 minutes to read back)
+    # the batched and the per-product forward runs at scale 0.1 (the same
+    # families, paths and dates: the full book's device events took ~1-3
+    # minutes to read back, on the smoke's longest path)
     small = mixed_controller(batch_products=False, scale=0.1)
     small.run_simulation()  # cold: the request plan
-    return row, {"mixed book forward, batched": fwd.run_simulation,
+    batched = mixed_controller(scale=0.1)
+    batched.run_simulation()
+    return row, {"mixed book forward, batched, scale 0.1": batched.run_simulation,
                  "mixed book forward, per product, scale 0.1": small.run_simulation}
 
 
@@ -2450,6 +2798,8 @@ def main():
     ns_row = k2_rung("vasicek, bs, cirpp euler", blocks, chol, ns_params32, ns_dense, 1,
                      NS_PATHS, issue=issue)
     ns_row["max_abs_err"] = max(ns_row["max_abs_err"], presim_err)
+    ks_row = k2_rung("vasicek, bs, cirpp euler, kernel-streaming AD", blocks, chol, ns_params32,
+                     ns_dense, 1, KSTREAM_PATHS, issue=issue)
     table_json = table_row(blocks, ns_params32, ns_dense, 1)
     ragged_rungs(device)
     sync_free(params32, (blocks, chol, ns_params32, ns_dense, NS_PATHS, 1))
@@ -2482,10 +2832,18 @@ def main():
     check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
     print(f"[time] routes done after {time.perf_counter() - t_start:.1f} s")
 
+    # 7a. kernel-streaming AD on K2, with the card to itself (55-66 GB at
+    # 2^22 paths), its counts from 0 just before it
+    ks_row["launches"], ks_table_launches = kernel_streaming()
+    table_json["launches"] += ks_table_launches
+    check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
+    print(f"[time] kernel-streaming AD done after {time.perf_counter() - t_start:.1f} s")
+
     # 7b. the mixed PV book (a row of its own at its shapes), the product
     # oracles (bs exact) and storage (s2f exact), whose launches add to
     # their tuples' rows, and the CVA book (the bs_multi + cirpp tuple);
-    # 7c. meanwhile, in a second process on the same card, the Hessians
+    # 7c. meanwhile, in a second process on the same card, the Hessians,
+    # then the other samplers and streaming phases
     hessians = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hessians-only"],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
@@ -2500,7 +2858,7 @@ def main():
     rows["bs_multi exact"]["launches"] += hessian_launches["bs_multi exact"]
     ns_row["launches"] += hessian_launches["north star"]
     table_json["launches"] += hessian_launches["hybrid_table, north star"]
-    k2_rows = [ns_row, *rows.values(), table_json]
+    k2_rows = [ns_row, ks_row, *rows.values(), table_json]
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
           "a kernel of the main paths never launched")
 
@@ -2560,8 +2918,9 @@ def phases_beside_hessians(device, issue, rows, t_start, hessians):
 def hessian_main():
     """``--hessians-only`` (the smoke's second process, phase 7c): the
     Hessian phases, each with its counts from 0 (one K1 or K2 launch, and
-    one prologue launch, per simulation phase for the whole run), then their
-    launches by row as the last line's JSON."""
+    one prologue launch, per simulation phase for the whole run), then the
+    samplers and streaming phases that launch no kernel, then the
+    Hessians' launches by row as the last line's JSON."""
     card()
     t0 = time.perf_counter()
     launches = {"heston_qe": heston_hessian()}
@@ -2573,6 +2932,8 @@ def hessian_main():
     launches["hybrid_table, north star"] = k2_module.hybrid_table.launches
     torch.cuda.empty_cache()
     analytic_hessian()
+    print(f"[time] Hessians: {time.perf_counter() - t0:.1f} s")
+    streaming_phases()
     print(f"[time] Hessian process: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"hessian_launches": launches}))
 

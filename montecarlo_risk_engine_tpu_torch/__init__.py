@@ -12,7 +12,11 @@ deterministic), Hull-White and Schwartz-2F models each on their own or in a
 ModelConfig, through ``SimulationController``, forward, differentiated and
 with Hessians, and with analytic PV evaluation, with the path kernels
 written in CUDA for Hopper (``ops/heston_qe.py`` + ``csrc/heston_qe.cu``,
-``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).
+``ops/hybrid_paths.py`` + ``csrc/hybrid_paths.cu``).  The samplers
+(antithetic pairs, scrambled Sobol with the Brownian bridge, ``ops/sobol.py``)
+and the streaming route (requests resolved inside the path loop, the
+streaming metric pipeline ``api/streaming_metrics.py``, kernel-streaming
+AD) are the controller's keywords, as in the JAX package.
 """
 
 from montecarlo_risk_engine_tpu_torch.api.controller import SimulationController

@@ -128,6 +128,72 @@ class ObservableTables:
         return self._cache[key]
 
 
+class EmittedTables:
+    """:class:`ObservableTables` backed by the streaming engine's emissions
+    (batching.py:108-187).  No state plane exists in streaming mode: every
+    observable was resolved inside the path loop, so a query gathers rows of
+    the group's [T*K, N] emission tensor."""
+
+    def __init__(self, plan, schedule, emissions, params, num_paths):
+        self.plan = plan
+        self.schedule = schedule
+        self.emissions = emissions
+        self.params = params
+        self.num_paths = num_paths
+        self.device = next((e.device for e in emissions), torch.device("cpu"))
+        self._cache: Dict[Tuple, torch.Tensor] = {}
+        self._handles: Optional[Dict[Tuple, int]] = None
+
+    def _gather(self, handles) -> torch.Tensor:
+        locs = [self.schedule.handle_loc[int(h)] for h in handles]
+        if len({g for g, _ in locs}) != 1:
+            raise ValueError("one (kind, asset) query spans several emission groups")
+        flat = self.emissions[locs[0][0]]
+        out = flat.index_select(0, torch.as_tensor([r for _, r in locs], device=flat.device))
+        if out.dim() == 1:
+            out = out[:, None].expand(out.shape[0], self.num_paths)
+        return out
+
+    def rows(self, kind, asset_id: str, tidx: np.ndarray, times: np.ndarray):
+        """Resolved observable rows [len(tidx), N] for (kind, asset)."""
+        tidx = [int(t) for t in np.asarray(tidx).tolist()]
+        key = (kind, asset_id, tuple(tidx))
+        if key not in self._cache:
+            lookup, handles = self.schedule.kind_lookup, []
+            for t in tidx:
+                lkey = (t, asset_id, kind)
+                if lkey not in lookup:
+                    if lkey in self.schedule.ambiguous_kinds:
+                        raise KeyError(
+                            f"ambiguous streaming emission for {kind} on '{asset_id}' at time "
+                            f"index {t}: several requests share this (time, asset, kind) with "
+                            "different (t1, t2) parameters, so a kind-level query cannot pick "
+                            "one; query by request times instead")
+                    raise KeyError(f"streaming emission missing for {kind} on '{asset_id}' at "
+                                   f"time index {t}: request not registered in the plan")
+                handles.append(lookup[lkey])
+            self._cache[key] = self._gather(handles)
+        return self._cache[key]
+
+    def request_rows(self, kind, asset_id, tidx, times1, times2):
+        """Rows [len(tidx), N] of explicit (t1, t2) requests (LIBOR fixings),
+        found by their full identity in the plan, so a (time, asset, kind)
+        that several requests share is no ambiguity here."""
+        if self._handles is None:
+            self._handles = {
+                (t_idx, a, req.request_type, 0.0 if req.time1 is None else round(req.time1, 12),
+                 0.0 if req.time2 is None else round(req.time2, 12)): req.handle
+                for (t_idx, a), reqs in self.plan.atomic_by_label.items() for req in reqs}
+        handles = [self._handles[(int(t), asset_id, kind, round(float(t1), 12),
+                                  round(float(t2), 12))]
+                   for t, t1, t2 in zip(np.asarray(tidx).tolist(), np.asarray(times1).tolist(),
+                                        np.asarray(times2).tolist())]
+        key = (kind, asset_id, tuple(handles))
+        if key not in self._cache:
+            self._cache[key] = self._gather(handles)
+        return self._cache[key]
+
+
 def _unique_rows(tidx_flat: np.ndarray, times_flat: np.ndarray):
     uniq, inverse = np.unique(tidx_flat, return_inverse=True)
     time_for_uniq = np.zeros(len(uniq))

@@ -1,13 +1,43 @@
 """SimulationController: the end-to-end Monte Carlo pipeline.
 
-Counterpart of ``montecarlo_risk_engine_tpu/api/controller.py`` with the JAX
-``streaming=False`` semantics: the constructor checks, the unified
-simulation timeline with the internal exposure timeline (metric dates plus
-MPoR collateral query dates), the pre-simulation and the LSM fits of the
-exposure profiles, plane-mode simulation and request resolution, valuation
-into netting sets with thresholds and MPoR collateral, the metrics (PV, CE,
-EPE, ENE, EEPE, PFE, CVA), analytic PV evaluation, first- and second-order
-sensitivities and the named result assembly.  Streaming is not ported yet.
+Counterpart of ``montecarlo_risk_engine_tpu/api/controller.py``: the
+constructor checks, the unified simulation timeline with the internal
+exposure timeline (metric dates plus MPoR collateral query dates), the
+pre-simulation and the LSM fits of the exposure profiles, simulation and
+request resolution (plane or streaming), valuation into netting sets with
+thresholds and MPoR collateral, the metrics (PV, CE, EPE, ENE, EEPE, PFE,
+CVA), analytic PV evaluation, first- and second-order sensitivities and the
+named result assembly.
+
+Samplers (engine/engine.py): ``antithetic=True`` mirrors every draw,
+``sampler="sobol"`` takes a digitally shifted Sobol sequence, and
+``qmc_bridge=True`` orders its dimensions along a Brownian bridge.  The
+path kernels take the pseudo-random sampler alone, so either sends a book
+to the engine.
+
+Streaming (controller.py:1746-1947).  The plane route
+keeps the [T, N, D] state plane and resolves every request from it; the
+streaming route resolves each point's request rows against the live state
+inside the path loop (requests.EmissionSchedule) and keeps only those rows.
+``streaming``: True streams, False keeps the plane, "auto" streams when
+the plane estimate exceeds a budget, when 13x the plane (P x that for
+Hessians) exceeds the AD budget, or when the emitted rows are at most a
+quarter of the plane's, and never when they exceed twice the plane's; the
+Brownian bridge's resident plane comes off the budgets first.  The budgets
+are an eighth and seven eighths of the card's memory (2 GiB and 14 GiB on
+the CPU).  Routes, as in the JAX package:
+
+  * a forward book on a path kernel keeps the plane (the kernel writes it),
+    unless ``streaming=True``, which wins over the kernel and takes the
+    engine (with ``use_kernel=True`` too it raises);
+  * a differentiated kernel book with a schedule takes kernel-streaming AD:
+    the kernel's frozen draws, and a reconstruction that emits rows
+    (ops/paths_ad.py, ``EMIT_PLANE_CHUNK`` coarse points at a time);
+  * ``metric_streaming`` ("auto": whenever eligible; True: required) folds
+    netting, collateral and the metric reductions into the main
+    simulation's path loop (api/streaming_metrics.py), off the kernel
+    route only; the reason a book is not eligible is kept in
+    ``metric_stream_reason`` and logged.
 
 ``batch_products=True`` (the default, as in the JAX package) values the
 products of each family as one batch (api/batching.py, controller.py:
@@ -94,11 +124,16 @@ from torch.func import jvp, vjp, vmap
 
 from montecarlo_risk_engine_tpu_torch import rng
 from montecarlo_risk_engine_tpu_torch.api.batching import (
+    EmittedTables,
     EuropeanEquityBatch,
     ExerciseEquityBatch,
     ExposureContext,
     ObservableTables,
     plan_batches,
+)
+from montecarlo_risk_engine_tpu_torch.api.streaming_metrics import (
+    MetricStreamExecutor,
+    metric_stream_ineligibility,
 )
 from montecarlo_risk_engine_tpu_torch.api.results import SimulationResults
 from montecarlo_risk_engine_tpu_torch.config import SimulationScheme, real_dtype, resolve_device
@@ -157,6 +192,11 @@ class SimulationController:
         noise_source: Optional[Dict[int, Callable]] = None,
         bridge_source: Optional[Callable] = None,
         batch_products: bool = True,
+        remat_paths: bool = False,
+        streaming: object = "auto",
+        qmc_bridge: bool = False,
+        metric_streaming: object = "auto",
+        qmc_shift_source: Optional[Dict[int, object]] = None,
     ):
         self.risk_metrics = risk_metrics
         netting_sets = list(netting_sets)
@@ -224,12 +264,37 @@ class SimulationController:
         if sampler == "sobol" and antithetic:
             raise ValueError("sampler='sobol' is incompatible with antithetic sampling")
         self.sampler = sampler
+        if qmc_bridge and sampler != "sobol":
+            raise ValueError("qmc_bridge=True requires sampler='sobol'")
+        self.qmc_bridge = bool(qmc_bridge)
+        self.remat_paths = bool(remat_paths)
         self.grad_chunk_size = max(1, int(grad_chunk_size))
+        if streaming not in ("auto", True, False):
+            raise ValueError("streaming must be 'auto', True or False")
+        if metric_streaming not in ("auto", True, False):
+            raise ValueError("metric_streaming must be 'auto', True or False")
+        # Metric streaming needs the streaming engine (controller.py:209-217).
+        if metric_streaming is True and streaming == "auto":
+            streaming = True
+        self.streaming = streaming
+        self.metric_streaming = metric_streaming
         if use_kernel not in ("auto", True, False):
             raise ValueError("use_kernel must be 'auto', True or False")
+        if use_kernel is True and streaming is True and not differentiate:
+            raise ValueError(
+                "use_kernel=True and streaming=True are mutually exclusive for forward-only "
+                "runs: the path kernels materialise the state plane that streaming mode avoids "
+                "(differentiated runs compose via in-loop row emission)")
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
         self.noise_source = dict(noise_source) if noise_source else None
+        if self.noise_source is not None and sampler == "sobol":
+            raise ValueError("noise_source replaces the pseudo-random draws; sampler='sobol' "
+                             "takes its shift words through qmc_shift_source")
+        self.qmc_shift_source = dict(qmc_shift_source) if qmc_shift_source else None
+        self._emission_schedule = None
+        self._metric_stream: Optional[MetricStreamExecutor] = None
+        self.metric_stream_reason: Optional[str] = None
 
         for prod_id, prod in enumerate(self.products):
             prod.product_id = prod_id
@@ -274,10 +339,8 @@ class SimulationController:
         # only they hold would be resolved (and, under AD, carry tangents)
         # for nothing.  The JAX package's compiler drops those resolutions.
         self._plan_products = [p for p in self.products if id(p) not in self._batched_ids]
-        plan_assets = {a for p in self._plan_products for a in p.asset_ids}
-        self.spot_requests = {k: v for k, v in self.spot_requests.items() if k[1] in plan_assets}
-        if not self._plan_products:
-            self.numeraire_requests = {}
+        self._all_requests = (self.spot_requests, self.numeraire_requests)
+        self._use_requests(streaming=False)
 
         self._kernel_active = self._decide_kernel()
         self._plan: Optional[RequestPlan] = None
@@ -345,7 +408,11 @@ class SimulationController:
         return requests
 
     def _decide_kernel(self) -> bool:
-        """The plain rule that replaces the JAX package's ``_decide_pallas``."""
+        """The plain rule that replaces the JAX package's ``_decide_pallas``.
+        A forward book's explicit ``streaming=True`` wins over the kernel
+        (controller.py:2057-2064)."""
+        if self.streaming is True and not self.differentiate:
+            return False
         eligible = (
             self.model.supports_kernel_paths(self.simulation_scheme)
             and self.sampler == "pseudo"
@@ -366,12 +433,105 @@ class SimulationController:
             return False
         return eligible
 
+    def _use_requests(self, streaming: bool) -> None:
+        """The exposure-date requests of the plan: all of them on the
+        streaming route, which has no plane to resolve the batches' rows
+        from afterwards; else only those the per-product path reads."""
+        spot, numeraire = self._all_requests
+        if not streaming:
+            plan_assets = {a for p in self._plan_products for a in p.asset_ids}
+            spot = {k: v for k, v in spot.items() if k[1] in plan_assets}
+            numeraire = numeraire if self._plan_products else {}
+        self.spot_requests, self.numeraire_requests = spot, numeraire
+
     def _ensure_plan(self) -> None:
         if self._plan is None:
-            self._plan = RequestPlan(self.model)
-            self._plan.collect_and_index_requests(
-                self._plan_products, self.simulation_timeline, self._get_requests(),
-                self.metric_exposure_timeline)
+            self._decide_streaming()
+
+    def _build_plan(self, products) -> RequestPlan:
+        plan = RequestPlan(self.model)
+        plan.collect_and_index_requests(products, self.simulation_timeline, self._get_requests(),
+                                        self.metric_exposure_timeline)
+        return plan
+
+    # Budgets of the "auto" streaming decision where the device tells no
+    # memory size (the CPU): stream once the plane would exceed the first,
+    # or its AD-amplified estimate the second (controller.py:1960-1965).
+    STREAMING_AUTO_THRESHOLD_BYTES = 2 << 30
+    STREAMING_AUTO_AD_BUDGET_BYTES = 14 << 30
+
+    def _auto_memory_budgets(self):
+        """(plane threshold, AD budget): an eighth and seven eighths of the
+        card's memory, the JAX package's ratios (controller.py:2004-2018)."""
+        if self.device.type != "cuda":
+            return self.STREAMING_AUTO_THRESHOLD_BYTES, self.STREAMING_AUTO_AD_BUDGET_BYTES
+        hbm = torch.cuda.get_device_properties(self.device).total_memory
+        return hbm // 8, hbm - hbm // 8
+
+    def _qmc_bridge_resident_bytes(self, num_paths: int) -> int:
+        """Bytes the Brownian bridge holds in either route, counted as the JAX
+        package counts them (controller.py:1949-1958): the rotated [T_sub, N,
+        sim_dim] plane and the [N, levels, sim_dim] Sobol normals it is built
+        from (both live while it is built); 0 without the bridge."""
+        if not self.qmc_bridge:
+            return 0
+        t_sub = len(self.simulation_timeline) * max(1, self.num_steps)
+        itemsize = torch.finfo(real_dtype()).bits // 8
+        return 2 * t_sub * self.model.simulation_dim * num_paths * itemsize
+
+    def _decide_streaming(self) -> None:
+        """The request plan, and plane or streaming once it exists
+        (controller.py:1746-1947): see the module docstring for the rule."""
+        mode = False if (self._kernel_active and not self.differentiate) else self.streaming
+        schedule = None
+        if mode is not False:
+            self._use_requests(streaming=True)
+            self._plan = self._build_plan(self.products)
+            schedule = self._plan.build_emission_schedule(len(self.simulation_timeline))
+        if mode == "auto":
+            plane_rows = max(len(self.simulation_timeline) * self.model.state_dim, 1)
+            emitted_rows = schedule.num_emitted_rows()
+            num_paths = max(self.num_paths_mainsim, self.num_paths_presim)
+            plane_bytes = plane_rows * num_paths * (torch.finfo(real_dtype()).bits // 8)
+            amp = 1.0
+            if self.differentiate:
+                amp = 13.0
+                if self.requires_higher_order_derivatives:
+                    amp *= max(1, len(self.model.initial_params()))
+            plane_threshold, ad_budget = self._auto_memory_budgets()
+            bridge_bytes = self._qmc_bridge_resident_bytes(num_paths)
+            if bridge_bytes:
+                plane_threshold = max(plane_threshold - bridge_bytes, plane_threshold // 8)
+                ad_budget = max(ad_budget - bridge_bytes, ad_budget // 8)
+            if emitted_rows > 2 * plane_rows:
+                mode = False
+            else:
+                mode = (plane_bytes > plane_threshold or amp * plane_bytes > ad_budget
+                        or emitted_rows * 4 <= plane_rows)
+        if mode:
+            self._emission_schedule = schedule
+        else:
+            self._emission_schedule = None
+            self._use_requests(streaming=False)
+            self._plan = self._build_plan(self._plan_products)
+        self._metric_stream, self.metric_stream_reason = None, None
+        if self.metric_streaming is not False:
+            reason = metric_stream_ineligibility(self)
+            if reason is None:
+                self._metric_stream = MetricStreamExecutor(self)
+                logger.info("streaming metric pipeline: on")
+            elif self.metric_streaming is True:
+                raise ValueError(f"metric_streaming=True but the book is ineligible: {reason}")
+            else:
+                self.metric_stream_reason = reason
+                logger.info("streaming metric pipeline: off (%s)", reason)
+        if self._emission_schedule is not None and self.qmc_bridge:
+            logger.warning(
+                "qmc_bridge keeps a [T_sub, N, sim_dim] rotated plane and its Sobol normals "
+                "(%.2f GiB) through the path loop, so streaming memory does not scale as "
+                "O(request rows x paths) on this book",
+                self._qmc_bridge_resident_bytes(max(self.num_paths_mainsim,
+                                                    self.num_paths_presim)) / 2**30)
 
     @staticmethod
     def _make_unique_names(base_names: List[str]) -> List[str]:
@@ -398,9 +558,11 @@ class SimulationController:
             phases.append((rng.PHASE_PRESIM, self.num_paths_presim))
         return phases
 
-    def _kernel_ad_fns(self, num_paths: int, phase: int):
+    def _kernel_ad_fns(self, num_paths: int, phase: int, emit_schedule=None):
         """(forward_coarse, noise_fn, recon_fn) of the differentiated kernel
-        route for one phase (controller.py:1192-1257)."""
+        route for one phase (controller.py:1192-1257); with an
+        ``emit_schedule`` they return the schedule's rows (kernel-streaming
+        AD)."""
         dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
                                   self.num_steps)
         scheme = self.simulation_scheme
@@ -410,14 +572,14 @@ class SimulationController:
                     p, scheme, dense, num_paths, seed=self.root_seed, phase=phase)
 
             return emitted_noise_fns(self.model, scheme, self.simulation_timeline,
-                                     num_paths, self.num_steps, noise_forward)
+                                     num_paths, self.num_steps, noise_forward, emit_schedule)
 
         def dense_forward(p):
             return self.model.kernel_paths(p, scheme, dense, num_paths, 1,
                                            seed=self.root_seed, phase=phase)
 
         return recovered_noise_fns(self.model, scheme, self.simulation_timeline,
-                                   num_paths, self.num_steps, dense_forward)
+                                   num_paths, self.num_steps, dense_forward, emit_schedule)
 
     def _kernel_noise_of(self, params):
         """Frozen draws {phase: noise} of the differentiated kernel route: one
@@ -425,9 +587,35 @@ class SimulationController:
         sweep (controller.py:1259-1271)."""
         return {phase: self._kernel_ad_fns(n, phase)[1](params) for phase, n in self._phases()}
 
+    def _engine_kw(self, phase: int):
+        """The engine's sampler keywords and test seams for one phase."""
+        return dict(root_seed=self.root_seed, noise_source=(self.noise_source or {}).get(phase),
+                    antithetic=self.antithetic, sampler=self.sampler,
+                    qmc_bridge=self.qmc_bridge, remat=self.remat_paths,
+                    qmc_shift=(self.qmc_shift_source or {}).get(phase), device=self.device)
+
     def _simulate_and_resolve(self, params, num_paths: int, phase: int, kernel_noise=None):
-        """One simulation pass -> (resolved handle lists over the [T, N, D]
-        state plane, the batches' observable tables or None)."""
+        """One simulation pass -> (resolved handle lists, the batches'
+        observable tables or None), from the [T, N, D] state plane or, with
+        an emission schedule, from the rows emitted in the path loop
+        (controller.py:1273-1340)."""
+        schedule = self._emission_schedule
+        if schedule is not None:
+            if self._kernel_active:
+                # Kernel-streaming AD (differentiated runs only): the
+                # reconstruction on the kernel's frozen draws emits the rows.
+                _, noise_fn, recon_rows = self._kernel_ad_fns(num_paths, phase, schedule)
+                noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
+                emissions = recon_rows(params, noise)
+            else:
+                _, emissions = simulate_paths(
+                    self.model, params, self.simulation_scheme, self.simulation_timeline,
+                    num_paths, self.num_steps, phase, emit_schedule=schedule,
+                    collect_states=False, **self._engine_kw(phase))
+            emissions = [e.to(real_dtype()) for e in emissions]
+            tables = (EmittedTables(self._plan, schedule, emissions, params, num_paths)
+                      if self._batches else None)
+            return self._plan.resolve_from_emissions(schedule, emissions), tables
         if self._kernel_active:
             if self.differentiate:
                 _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
@@ -441,10 +629,7 @@ class SimulationController:
         else:
             states = simulate_paths(
                 self.model, params, self.simulation_scheme, self.simulation_timeline,
-                num_paths, self.num_steps, phase, root_seed=self.root_seed,
-                noise_source=(self.noise_source or {}).get(phase),
-                antithetic=self.antithetic, sampler=self.sampler, device=self.device,
-            )
+                num_paths, self.num_steps, phase, **self._engine_kw(phase))
         tables = ObservableTables(self.model, params, states, num_paths) if self._batches else None
         return self._plan.resolve_requests(params, states), tables
 
@@ -967,6 +1152,11 @@ class SimulationController:
                     params, self.num_paths_presim, rng.PHASE_PRESIM, kernel_noise)
                 fits = self._fit_regressions(params, resolved_pre, tables_pre)
                 del resolved_pre, tables_pre  # free the pre-simulation before the main one
+            if self._metric_stream is not None:
+                # The main simulation folds its own rows (controller.py:1434-1439).
+                return self._metric_stream.run(
+                    params, fits, (self.noise_source or {}).get(rng.PHASE_MAINSIM),
+                    (self.qmc_shift_source or {}).get(rng.PHASE_MAINSIM))
             resolved = tables = None
             if self._simulates():
                 resolved, tables = self._simulate_and_resolve(
@@ -1112,10 +1302,12 @@ class SimulationController:
         t4 = time.perf_counter()
         logger.info(
             "Simulation completed for %d netting set(s) and %d product(s) on %s "
-            "(%s paths): preprocessing=%.6fs pipeline=%.6fs hessians=%.6fs "
+            "(%s paths, %s): preprocessing=%.6fs pipeline=%.6fs hessians=%.6fs "
             "postprocessing=%.6fs total=%.6fs",
             len(self.netting_sets), len(self.products), self.device,
             "kernel" if self._kernel_active else "engine",
+            ("metric streaming" if self._metric_stream is not None else
+             "streaming" if self._emission_schedule is not None else "plane"),
             t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0,
         )
 

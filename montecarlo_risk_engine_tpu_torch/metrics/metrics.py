@@ -6,9 +6,11 @@ one per evaluation point; MC error = unbiased std / sqrt(N)
 (reference metric.py:26-35); PFE is the order statistic
 ``sorted[ceil(q N) - 1]`` with the density finite-difference error; EEPE the
 plain time average of EE (quirk Q6) unless ``effective``; CVA accumulates
-``E+(t_k) S(0, t_k) (1 - S(t_k, t_k+1))`` times (1 - recovery).  Sums use
-``torch.sum`` — the JAX package's fixed pairwise order exists for its
-sharding-determinism contract, which the port does not carry yet.
+``E+(t_k) S(0, t_k) (1 - S(t_k, t_k+1))`` times (1 - recovery).  Path
+means reduce by :func:`fixed_tree_sum`, a pairwise-halving sum in a fixed
+order (metrics.py:53-112), so the plane pipeline and the streaming metric
+pipeline (api/streaming_metrics.py) reduce the same numbers in the same
+order, and a reduction split over ranks can keep it.
 """
 
 from __future__ import annotations
@@ -38,12 +40,35 @@ class EvaluationType(enum.Enum):
     NUMERICAL = "Numerical"
 
 
+def fixed_tree_sum(values: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed pairwise-halving order (JAX metrics.py:
+    53-98): pad to a power of two with zeros, then add the upper half onto
+    the lower half until one row is left.  Each output element is the same
+    sequence of float adds whatever device or library reduction schedule
+    would have been picked."""
+    dim = dim % max(values.dim(), 1)
+    n = values.shape[dim] if values.dim() else 0
+    if n == 0:
+        shape = values.shape[:dim] + values.shape[dim + 1:]
+        return torch.zeros(shape, dtype=values.dtype, device=values.device)
+    p = 1 << (n - 1).bit_length()
+    if p != n:
+        pad_shape = list(values.shape)
+        pad_shape[dim] = p - n
+        values = torch.cat([values, values.new_zeros(pad_shape)], dim=dim)
+    while values.shape[dim] > 1:
+        half = values.shape[dim] // 2
+        values = values.narrow(dim, 0, half) + values.narrow(dim, half, half)
+    return values.select(dim, 0)
+
+
 def mc_mean_and_error(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, unbiased-std / sqrt(N)) over a pathwise vector (metric.py:26-35)."""
+    """(mean, unbiased-std / sqrt(N)) over a pathwise vector (metric.py:26-35),
+    both moments through :func:`fixed_tree_sum`."""
     n = values.shape[0]
-    mean = values.sum() / n
+    mean = fixed_tree_sum(values) / n
     if n > 1:
-        sigma = torch.sqrt(((values - mean) ** 2).sum() / (n - 1))
+        sigma = torch.sqrt(fixed_tree_sum((values - mean) ** 2) / (n - 1))
     else:
         sigma = torch.zeros_like(mean)
     return mean, sigma / n ** 0.5
@@ -133,7 +158,8 @@ class EEPEMetric(Metric):
         return "eepe[effective]" if self.effective else "eepe"
 
     def evaluate_numerically(self, exposures=None, **kwargs):
-        per_date_ee = torch.stack([torch.clamp(e, min=0.0).sum() / e.shape[0] for e in exposures])
+        per_date_ee = torch.stack([fixed_tree_sum(torch.clamp(e, min=0.0)) / e.shape[0]
+                                   for e in exposures])
         if self.effective:
             per_date_ee = torch.cummax(per_date_ee, dim=0).values
         return [mc_mean_and_error(per_date_ee)]

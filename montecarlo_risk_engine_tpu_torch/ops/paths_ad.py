@@ -1,8 +1,8 @@
 """Differentiable kernel paths: noise recovery and reconstruction.
 
 Counterpart of ``montecarlo_risk_engine_tpu/ops/pallas_paths_ad.py``
-(``dense_timeline``, ``_coarse_slots``, ``recovered_noise_fns`` and
-``emitted_noise_fns``).
+(``dense_timeline``, ``_coarse_slots``, ``rows_from_states``,
+``_rows_recon``, ``recovered_noise_fns`` and ``emitted_noise_fns``).
 
   1. The path kernel runs without grad on the substep-dense timeline (every
      substep boundary an emission point, one substep per point).
@@ -23,8 +23,15 @@ Counterpart of ``montecarlo_risk_engine_tpu/ops/pallas_paths_ad.py``
 A timeline point at zero distance from its predecessor gets one dense entry
 and draws nothing.  The dense run's draw counters are dense indices, so on a
 timeline with such points it is a different (equally valid) stream from the
-coarse forward run.  The JAX package's streaming mode (``_rows_recon``)
-is not ported yet.
+coarse forward run.
+
+Kernel-streaming mode (``emit_schedule``, pallas_paths_ad.py:120-230): the
+functions return the streaming engine's emissions (the [T*K, N] or [T*K]
+rows of each schedule group) instead of the coarse plane.  The reconstruction
+rebuilds ``EMIT_PLANE_CHUNK`` coarse points at a time and resolves only
+their request rows before it drops them, so under AD no [T, N, D] plane
+carries a tangent; the primal can be resolved from the kernel's plane
+(:func:`rows_from_states`).
 """
 
 from __future__ import annotations
@@ -34,7 +41,13 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from montecarlo_risk_engine_tpu_torch.ops.gather import RowSelection
 from montecarlo_risk_engine_tpu_torch.ops.noise import correlate_noise
+from montecarlo_risk_engine_tpu_torch.requests import EmittedRows
+
+# Coarse points per mini-plane of the rows-emitting reconstruction
+# (pallas_paths_ad.py:147-151); read at call time, so tests can change it.
+EMIT_PLANE_CHUNK = 8
 
 
 def dense_timeline(calibration_date: float, timeline: Sequence[float], num_steps: int):
@@ -100,25 +113,61 @@ class _Transforms:
         return self._by_dt[key]
 
 
-def _reconstruct(model, scheme, dense, slots, num_coarse, num_paths, params, z, u=None):
+def _resolve_rows(model, params, group, states, points: Sequence[int]):
+    """Rows [len(points) * K, N] (or [len(points) * K]) of one schedule group
+    at the coarse ``points``, from ``states`` (a [T, N, D] tensor or a
+    sequence of [N, D] states, indexed like ``points``): every point's K
+    request rows in the streaming engine's flat order."""
+    dtype = params[0].dtype
+    device = (states if isinstance(states, torch.Tensor) else states[points[0]]).device
+    tab = lambda t: torch.as_tensor(t[list(points)].ravel(), dtype=dtype, device=device)
+    rows = [p for p in points for _ in range(group.K)]
+    return model.resolve_request_rows(params, group.kind, group.asset_id, tab(group.t1_tab),
+                                      tab(group.t2_tab), RowSelection(states, rows))
+
+
+def rows_from_states(model, params, schedule, states):
+    """The streaming emissions resolved from a coarse [T, N, D] state plane,
+    one [T*K, N] (or [T*K]) tensor per schedule group
+    (pallas_paths_ad.py:120-144): the primal of kernel-streaming AD from the
+    kernel's own plane."""
+    points = range(states.shape[0])
+    return [_resolve_rows(model, params, g, states, points) for g in schedule.groups]
+
+
+def _reconstruct(model, scheme, dense, slots, num_coarse, num_paths, params, z, u=None,
+                 schedule=None):
     """Coarse states [T, N, D] rebuilt from the frozen standard normals z
     [T', N, sim_dim] (and uniforms u [T', N]) by ``model.step`` in the
-    dtype of ``params``."""
+    dtype of ``params``.  With a ``schedule``, the streaming emissions
+    instead (pallas_paths_ad.py:154-227): each run of ``EMIT_PLANE_CHUNK``
+    coarse points is resolved as soon as its last substep is done, and its
+    states dropped."""
     dtype = params[0].dtype
     state = model.init_state(params, num_paths).to(dtype)
     transform = _Transforms(model, scheme, params)
     coarse = [None] * num_coarse
+    chunk = max(1, int(EMIT_PLANE_CHUNK))
+    c0, c1 = 0, min(chunk, num_coarse)
+    out = None if schedule is None else [[] for _ in schedule.groups]
     for i, (t_prev, dt) in enumerate(_schedule(model.calibration_date, dense)):
         if dt > 0.0:
             noise = correlate_noise(z[i].to(dtype), transform(dt))
             state = model.step(params, scheme, t_prev, t_prev + dt, state, noise,
                                None if u is None else u[i].to(dtype))
         coarse[slots[i]] = state
+        if schedule is not None and (i + 1 == len(slots) or slots[i + 1] >= c1):
+            for g, rows in zip(schedule.groups, out):
+                rows.append(_resolve_rows(model, params, g, coarse, range(c0, c1)))
+            coarse[c0:c1] = [None] * (c1 - c0)
+            c0, c1 = c1, min(c1 + chunk, num_coarse)
+    if schedule is not None:
+        return [EmittedRows(rows) for rows in out]
     return torch.stack(coarse)
 
 
 def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
-                        forward_fn: Callable):
+                        forward_fn: Callable, emit_schedule=None):
     """(forward_coarse, noise_fn, recon_fn) for invertible transitions.
 
     ``forward_fn(params) -> [T', N, D]`` runs the path kernel on the
@@ -133,13 +182,19 @@ def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
         step;
       * ``recon_fn(params, z)``: coarse states [T, N, D] rebuilt from z;
         ``recon_fn(p, noise_fn(p))`` is the kernel's trajectory.
+
+    ``emit_schedule``: the kernel-streaming mode; ``forward_coarse`` and
+    ``recon_fn`` return the schedule's emissions instead of the plane.
     """
     dense, orig_idx = dense_timeline(model.calibration_date, timeline, num_steps)
     slots = _coarse_slots(len(dense), orig_idx)
 
     def forward_coarse(params):
         with torch.no_grad():
-            return forward_fn(params)[torch.as_tensor(orig_idx)]
+            states = forward_fn(params)[torch.as_tensor(orig_idx)]
+            if emit_schedule is not None:
+                return rows_from_states(model, params, emit_schedule, states)
+            return states
 
     def noise_fn(params):
         with torch.no_grad():
@@ -161,13 +216,14 @@ def recovered_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
         return torch.stack(z)  # [T', N, sim_dim]
 
     def recon_fn(params, z):
-        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z)
+        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z,
+                            schedule=emit_schedule)
 
     return forward_coarse, noise_fn, recon_fn
 
 
 def emitted_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
-                      forward_fn: Callable):
+                      forward_fn: Callable, emit_schedule=None):
     """(forward_coarse, noise_fn, recon_fn) for non-invertible transitions.
 
     ``forward_fn(params) -> (states [T', N, D], z [T', N, sim_dim],
@@ -178,13 +234,19 @@ def emitted_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
       * ``noise_fn(params)``: the frozen (z, u), computed without grad;
       * ``recon_fn(params, (z, u))``: coarse states [T, N, D] rebuilt from
         the draws by ``model.step`` in the dtype of ``params``.
+
+    ``emit_schedule``: the kernel-streaming mode, as in
+    :func:`recovered_noise_fns`.
     """
     dense, orig_idx = dense_timeline(model.calibration_date, timeline, num_steps)
     slots = _coarse_slots(len(dense), orig_idx)
 
     def forward_coarse(params):
         with torch.no_grad():
-            return forward_fn(params)[0][torch.as_tensor(orig_idx)]
+            states = forward_fn(params)[0][torch.as_tensor(orig_idx)]
+            if emit_schedule is not None:
+                return rows_from_states(model, params, emit_schedule, states)
+            return states
 
     def noise_fn(params):
         with torch.no_grad():
@@ -193,6 +255,7 @@ def emitted_noise_fns(model, scheme, timeline, num_paths: int, num_steps: int,
 
     def recon_fn(params, noise):
         z, u = noise
-        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z, u)
+        return _reconstruct(model, scheme, dense, slots, len(orig_idx), num_paths, params, z, u,
+                            schedule=emit_schedule)
 
     return forward_coarse, noise_fn, recon_fn

@@ -15,6 +15,11 @@ Models with more noise factors (``sim_dim > 2``, the hybrid books) make call
 number ``c`` at counter (path, substep, c, 0) for normals ``4c .. 4c+3``:
 words 0/1 and 2/3 each feed one Box-Muller pair (:func:`substep_normals`).
 For ``sim_dim <= 2`` those are exactly the normals of :func:`substep_draws`.
+A model with a uniform beside more than 2 normals (Heston QE in a
+ModelConfig) takes it from word 0 of the call at counter (path, substep, 0,
+1) (:func:`substep_uniform`): the normals only ever use counter word 3 = 0,
+so the lanes never meet.  The Sobol sampler's digital shift is word 0 at
+(dimension, 0, 0, 2) (:func:`qmc_shift`), once per phase.
 Every draw is a pure function of (seed, phase, path, substep), so pre-sim and
 main-sim streams never collide and a path's draws do not depend on how many
 paths the run has.
@@ -39,6 +44,9 @@ PHASE_BRIDGE = 12345    # barrier Brownian-bridge stream (barrier_option.py:50)
 # carry the draw.
 PURPOSE_NORMAL = 0      # words 0 and 1 -> Box-Muller pair
 PURPOSE_UNIFORM = 1     # word 2 -> QE exp-mixture uniform (heston.py:192)
+PURPOSE_QMC_SHIFT = 2   # counter word 3 of the Sobol digital-shift lane
+# Counter word 3 of the uniform beside more than 2 normals.
+LANE_UNIFORM = 1
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0 = 0xD2511F53
@@ -152,3 +160,30 @@ def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim
             if len(cols) < sim_dim:
                 cols.append(r * torch.sin(theta))
     return torch.stack(cols, dim=-1)
+
+
+def substep_uniform(seed: int, phase: int, counter: int, num_paths: int,
+                    dtype: torch.dtype, device) -> torch.Tensor:
+    """[num_paths] uniforms for one substep from a lane of their own: word 0
+    of the Philox call at counter (path, counter, 0, LANE_UNIFORM).  The
+    normals of :func:`substep_normals` take counter word 3 = 0, so this
+    stream is disjoint from them for any ``sim_dim``."""
+    paths = torch.arange(num_paths, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    step = torch.full((), int(counter) & _MASK32, dtype=torch.int64, device=device)
+    lane = torch.full((), LANE_UNIFORM, dtype=torch.int64, device=device)
+    w0, _, _, _ = philox4x32_10((paths, step, zero, lane), (seed, phase))
+    return uniform_from_word(w0, dtype)
+
+
+def qmc_shift(seed: int, phase: int, num_dims: int, device="cpu") -> torch.Tensor:
+    """[num_dims] 32-bit digital-shift words of the Sobol sampler (int64 in
+    [0, 2^32)): word 0 of the Philox call at counter (dimension, 0, 0,
+    PURPOSE_QMC_SHIFT) under key (seed, phase), so the pre-simulation and
+    main-simulation shifts differ and no path draw shares the lane (the JAX
+    package draws them from threefry, rng.py:51-61)."""
+    dims = torch.arange(num_dims, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    lane = torch.full((), PURPOSE_QMC_SHIFT, dtype=torch.int64, device=device)
+    w0, _, _, _ = philox4x32_10((dims, zero, zero, lane), (seed, phase))
+    return w0

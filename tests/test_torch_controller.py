@@ -132,8 +132,10 @@ def test_kernel_selection_rule():
         port_controller(64, use_kernel=True, antithetic=True)
     with pytest.raises(ValueError):
         port_controller(64, use_kernel=True, noise_source={43: lambda c: None})
-    with pytest.raises(NotImplementedError):
-        port_controller(64, antithetic=True).run_simulation()
+    # Antithetic pairs run on the engine: the kernels take the pseudo sampler alone.
+    antithetic = port_controller(64, antithetic=True)
+    assert not antithetic._kernel_active
+    assert np.isfinite(antithetic.run_simulation().get_results("call_1", "pv", evaluation_idx=0))
 
 
 def test_unported_features_raise():

@@ -100,8 +100,14 @@ def test_engine_device_argument():
 
 
 def test_engine_refuses_unported_samplers():
+    # Antithetic pairs and the Sobol sampler are ported
+    # (tests/test_torch_samplers.py); what the JAX engine refuses is refused.
     model = HestonModel(0.0, **MODEL_KW)
-    for kwargs in (dict(antithetic=True), dict(sampler="sobol")):
-        with pytest.raises(NotImplementedError):
+    for kwargs, n in ((dict(antithetic=True), 7), (dict(sampler="sobol", antithetic=True), 8),
+                      (dict(qmc_bridge=True), 8), (dict(sampler="halton"), 8)):
+        with pytest.raises(ValueError):
             simulate_paths(model, model.initial_params(), SimulationScheme.QE,
-                           SLICE_TIMELINE, 8, 1, 43, **kwargs)
+                           SLICE_TIMELINE, n, 1, 43, **kwargs)
+    for kwargs in (dict(antithetic=True), dict(sampler="sobol")):
+        assert torch.isfinite(simulate_paths(model, model.initial_params(), SimulationScheme.QE,
+                                             SLICE_TIMELINE, 8, 1, 43, **kwargs)).all()
