@@ -50,24 +50,39 @@ plain PyTorch version:
     2^22 (cut from 2^24: 342 emitted rows and the frozen draws per phase,
     PERF.md section 4); the Heston book with ``sampler="sobol"`` and the
     Brownian bridge, a Black-Scholes call's Sobol error against the
-    pseudo-random SE, and the BS-multi book with antithetic pairs.
+    pseudo-random SE, and the BS-multi book with antithetic pairs;
+  * the Heston-QE substep ladder K3 (``heston_ladder_paths``, nine rungs
+    over K1's stages) through its decomposition tool,
+    ``montecarlo_risk_engine_tpu_torch.tools.kernel_decomposition``, at the
+    shapes of ``benchmarks/kernel_decomposition.py`` (1,000,000 paths x 10
+    points x 4 substeps).
 
 Phases:
 
   1. take the card, print its name and power limit (nvidia-smi);
-  2. build K1 and K2 from the sources in this checkout, K2 once per block
-     tuple the script launches (concurrent nvcc, sm_90a); print each
-     kernel's ptxas frame and fail if ptxas reports a spill in any K1 or
-     K2 kernel, or a stack frame over the 32 bytes of sincosf's reduction
-     array; count each kernel's issued instructions per path-substep from
-     the SASS (cuobjdump) for its issue-slot time;
+  2. build K1, K2 and K3 from the sources in this checkout, K2 once per
+     block tuple the script launches (concurrent nvcc, sm_90a); print each
+     kernel's ptxas frame and fail if ptxas reports a spill in any K1, K2
+     or K3 kernel, or a stack frame over the 32 bytes of sincosf's
+     reduction array; count each kernel's issued instructions per
+     path-substep from the SASS (cuobjdump, ``ops/sass.py``) for its
+     issue-slot time; fail unless K1's count, taken as its build before
+     the shared QE header was counted (no nested loop a slow path), is
+     within 4 instructions of that build's 414;
   3. compare each kernel with its plain version on the card at its main
      path's shapes, bitwise, and time the call (CUDA events, warm median
      of 5), the launch alone (events around the kernel's C call) and the
      wrapper's host time: K1; K2 and its table prologue on the north-star
-     shapes; K2 on ragged and misaligned launches; K1 and K2 under
-     torch.cuda.set_sync_debug_mode("error"); the K2 ladder of every
-     (block, scheme), the CVA book's bs_multi + cirpp tuple included;
+     shapes; K2 on ragged and misaligned launches; K1, K2 and every K3
+     rung under torch.cuda.set_sync_debug_mode("error"); the K2 ladder of
+     every (block, scheme), the CVA book's bs_multi + cirpp tuple included;
+  3d. the substep ladder K3 (``k3_ladder``): every rung bitwise against
+     its plain version, qe-full bitwise K1's states, qe-algebra within
+     rtol 1e-5 / atol 1e-6 of qe-full on >= 99.99 % of paths (terminal
+     means 1e-6), every QE rung's discounted terminal spot within 4 SE +
+     0.05 of the spot; then its main path, the decomposition tool's run
+     (single and marginal times, instructions per path-substep and what
+     each rung adds), counts from 0 and read, and each rung's split;
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
@@ -147,7 +162,6 @@ import json
 import math
 import os
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -159,6 +173,7 @@ import torch
 import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
+from montecarlo_risk_engine_tpu_torch.ops import heston_ladder as k3_module
 from montecarlo_risk_engine_tpu_torch.ops import heston_qe as k1_module
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
@@ -182,8 +197,15 @@ from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import (
     hybrid_paths_reference,
     kernel_slots,
 )
+from montecarlo_risk_engine_tpu_torch.ops.heston_ladder import (
+    RUNGS,
+    heston_ladder_paths,
+    heston_ladder_paths_reference,
+)
 from montecarlo_risk_engine_tpu_torch.ops.paths_ad import dense_timeline
+from montecarlo_risk_engine_tpu_torch.ops.sass import HBM_BYTES_PER_S, IssueSlots, ptxas_frames
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType
+from montecarlo_risk_engine_tpu_torch.tools import kernel_decomposition as k3_tool
 
 NUM_PATHS = 1 << 20
 NUM_STEPS = 4
@@ -204,13 +226,10 @@ CVA_REF, CVA_REF_SE = 0.2872266, 1.8e-5
 EURO_OPTIONS = 10_000
 ASSETS = tuple(f"asset_{i}" for i in range(4))
 
-# Device peaks for the bounds (NVIDIA H100 SXM data sheet).
-HBM_BYTES_PER_S = 3.35e12
+# Device peaks for the bounds (NVIDIA H100 SXM data sheet; the memory rate
+# HBM_BYTES_PER_S in ops/sass.py).
 FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12  # outside the tensor cores
-# Issue slots: each of the 4 schedulers of each of the 132 SMs issues one
-# warp instruction (32 lanes) per cycle.
-ISSUE_LANES_PER_CYCLE = 132 * 4 * 32
 # Operations per path-substep counted from the sources, one per float or
 # integer add, multiply, compare, select, conversion, division or
 # transcendental call (a lower bound on the issue slots):
@@ -220,6 +239,33 @@ ISSUE_LANES_PER_CYCLE = 132 * 4 * 32
 #   K2 (csrc/hybrid_paths.cu): k2_ops() below, from the same rules.
 K1_OPS_PER_SUBSTEP = 173
 PHILOX_OPS, UNIFORM_OPS, BM_PAIR_OPS, BM_COS_OPS = 98, 5, 8, 6
+# K1 before its QE update moved into csrc/heston_qe_step.cuh (NVIDIA H100
+# 80GB HBM3, 700.00 W): 414 instructions per path-substep by the count of
+# that time, which took only local-memory and CALL regions for slow paths
+# (substep_loop(nested_loops=False) in ops/sass.py; 110 of them are the
+# sincos reduction that ptxas keeps in registers), and its launch-only
+# times.  The header must leave K1 as it was: this build, counted by the
+# same rule, within K1_SASS_SLACK instructions of it.
+K1_SASS_BEFORE, K1_SASS_SLACK, K1_LAUNCH_MS_BEFORE = 414, 4, "0.506-0.546"
+#   K3 (csrc/heston_ladder.cu), per rung, from the same rules: the QE update
+#   52 (K1's 173 less its draws; the division-reduced update drops the psi
+#   division and adds the multiply of s2 > 1.5 m2), an inverse-CDF normal 27
+#   on its central branch (w < 5: 99.66 % of the uniforms; the tail branch
+#   adds a sqrtf), the trivial consumptions 5 (box-muller, icdf) and 4
+#   (no-draws), the raw bits' two xors, conversion, multiply and two adds 6;
+#   the batched rungs take 3/4 of a Philox call a substep.
+QE_UPDATE_OPS, ICDF_OPS = 52, 27
+K3_OPS_PER_SUBSTEP = {
+    "no-draws": 4,
+    "raw-bits-x3": PHILOX_OPS + 6,
+    "box-muller": PHILOX_OPS + 3 * UNIFORM_OPS + BM_PAIR_OPS + 5,
+    "icdf": PHILOX_OPS + 3 * UNIFORM_OPS + 2 * ICDF_OPS + 5,
+    "qe-full": PHILOX_OPS + 3 * UNIFORM_OPS + BM_PAIR_OPS + QE_UPDATE_OPS,
+    "qe-icdf": PHILOX_OPS + 3 * UNIFORM_OPS + 2 * ICDF_OPS + QE_UPDATE_OPS,
+    "qe-batched-prng": PHILOX_OPS * 0.75 + 3 * UNIFORM_OPS + BM_PAIR_OPS + QE_UPDATE_OPS,
+    "qe-algebra": PHILOX_OPS + 3 * UNIFORM_OPS + BM_PAIR_OPS + QE_UPDATE_OPS,
+    "qe-combined": PHILOX_OPS * 0.75 + 3 * UNIFORM_OPS + BM_PAIR_OPS + QE_UPDATE_OPS,
+}
 # K2 slot updates per substep (the switch in csrc/hybrid_paths.cu); an
 # exact GBM slot adds one expf per emitted point.
 K2_ROLE_OPS = {GBM_EXACT: 8, GBM_EULER: 7, VAS_EXACT: 7, VAS_EULER: 9, CIRPP: 14,
@@ -789,6 +835,11 @@ KSTREAM_PATHS = 1 << 22        # kernel-streaming AD on K2, cut from 2^24 (PERF.
 # measured at chunk 6 and 2^24 paths (37 units, NVIDIA H100 80GB HBM3)
 # refits it to 10 + 5.
 STREAM_PRIMAL_ND, STREAM_TANGENT_ND = 10, 5
+# The second process's share of the card (phase 7c, beside 7b): at this cap
+# its caching allocator frees its cache and retries instead of growing into
+# the memory the main process's phases need beside it (~12 GiB; with no cap
+# the main process's CVA book once found 79.16 GiB of the card in use).
+HESSIAN_PROCESS_MEMORY_FRACTION = 0.7
 KSTREAM_CHUNK = 1              # kernel-streaming AD: [342, N] rows per tangent
 
 
@@ -814,9 +865,10 @@ def balanced_chunk(num_params: int, widest: int) -> int:
 def stream_chunk(num_paths: int, state_dim: int, num_params: int) -> int:
     """``grad_chunk_size`` of a differentiated metric-streaming run from the
     memory model: tangents of STREAM_TANGENT_ND [N, D] states each into
-    three quarters of the card beside the primal's STREAM_PRIMAL_ND."""
+    three quarters of the second process's share of the card beside the
+    primal's STREAM_PRIMAL_ND."""
     nd = num_paths * state_dim * 8
-    budget = 0.75 * torch.cuda.get_device_properties(0).total_memory
+    budget = 0.75 * HESSIAN_PROCESS_MEMORY_FRACTION * torch.cuda.get_device_properties(0).total_memory
     return balanced_chunk(num_params, int((budget - STREAM_PRIMAL_ND * nd) // (STREAM_TANGENT_ND * nd)))
 
 
@@ -2463,9 +2515,9 @@ def ragged_rungs(device):
 
 
 def sync_free(k1_params, k2_args):
-    """K1's and K2's wrappers under torch.cuda.set_sync_debug_mode("error"),
-    with K2's input cache emptied first and then warm: no call may
-    synchronise the host with the card."""
+    """K1's, K2's and the ladder K3's wrappers (every rung) under
+    torch.cuda.set_sync_debug_mode("error"), with K2's input cache emptied
+    first and then warm: no call may synchronise the host with the card."""
     from montecarlo_risk_engine_tpu_torch.ops.hybrid_paths import slot_inputs, table_inputs
 
     torch.cuda.synchronize()
@@ -2479,135 +2531,90 @@ def sync_free(k1_params, k2_args):
             heston_qe_paths(k1_params, dense, NUM_PATHS, 1, seed=SEED, phase=PHASE,
                             emit_noise=True)
             hybrid_paths(*k2_args, seed=SEED, phase=PHASE)
+            for rung in RUNGS:
+                heston_ladder_paths(rung, k1_params, MATURITIES, NUM_PATHS, NUM_STEPS, seed=SEED,
+                                    phase=PHASE)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print("[sync] K1 (forward and emit) and K2 (table prologue and paths, cold and warm cache) "
-          "ran under set_sync_debug_mode('error'): no host sync")
+    print("[sync] K1 (forward and emit), K2 (table prologue and paths, cold and warm cache) and "
+          "K3 (every rung) ran under set_sync_debug_mode('error'): no host sync")
 
 
-def find_cuobjdump():
-    """The toolkit's cuobjdump, else the copy in Triton's package; None if
-    neither is there."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for path in (os.path.join(home, "bin", "cuobjdump"), shutil.which("cuobjdump"),
-                 "/usr/local/cuda/bin/cuobjdump"):
-        if path and os.access(path, os.X_OK):
-            return path
-    try:
-        import triton
+def k3_ladder(issue):
+    """Phase 3d: the substep ladder K3 at the JAX script's shapes
+    (``tools/kernel_decomposition.py``: 1,000,000 paths x 10 points x 4
+    substeps).  Every rung bitwise against its plain version; qe-full
+    bitwise K1's states; qe-algebra against qe-full on the same draws
+    (rtol 1e-5 / atol 1e-6 on >= 99.99 % of paths, terminal means 1e-6: the
+    psi test rounds apart); every QE rung's discounted terminal spot within
+    4 SE + 0.05 of the spot.  Then the ladder's main path, the run of
+    ``tools/kernel_decomposition.py``, with the counts from 0 just before it
+    and read just after, its table printed; each rung's launch-only and
+    wrapper times.
+    Returns the rungs' rows of the kernels JSON line."""
+    t0 = time.perf_counter()
+    device, d = torch.device("cuda"), k3_tool
+    params = d.ladder_params(device)
+    n, timeline, steps = d.NUM_PATHS, d.TIMELINE, d.NUM_STEPS
+    plain = lambda rung: heston_ladder_paths_reference(rung, params, timeline, n, steps,
+                                                       seed=d.SEED, phase=d.PHASE)
+    print(f"[kernel] heston_ladder at {n} paths x {len(timeline)} points x {steps} substeps")
+    states, rows = {}, {}
+    for rung in RUNGS:
+        out, ref = d.run(rung, params), plain(rung)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"heston_ladder[{rung}]: non-finite states")
+        err, same = float((out - ref).abs().max()), torch.equal(out, ref)
+        del ref
+        plain_ms = median_ms(lambda: plain(rung), reps=3)
+        print(f"  {rung}: bitwise {same}, max abs err {err:.3e}, plain {plain_ms:.3f} ms")
+        check(same, f"heston_ladder[{rung}]: states not bitwise equal to the plain version")
+        states[rung] = out
+        rows[rung] = {"name": f"heston_ladder[{rung}]", "route": "cuda",
+                      "source": "montecarlo_risk_engine_tpu_torch/csrc/heston_ladder.cu",
+                      "replaces": "benchmarks/kernel_decomposition.py:226", "launches": 0,
+                      "max_abs_err": err, "plain_ms": plain_ms}
+    k1 = heston_qe_paths(params, timeline, n, steps, seed=d.SEED, phase=d.PHASE)
+    check(torch.equal(k1, states["qe-full"]), "qe-full is not bitwise K1's states")
+    del k1
+    algebra, full = states["qe-algebra"], states["qe-full"]
+    frac = float(torch.isclose(algebra, full, rtol=1e-5, atol=1e-6).all(-1).all(0).double().mean())
+    mean_a, mean_f = algebra[-1].double().mean(0), full[-1].double().mean(0)
+    mean_rel = float(((mean_a - mean_f).abs() / mean_f.abs()).max())
+    print(f"  qe-full bitwise K1's states; qe-algebra vs qe-full: paths within rtol 1e-5/atol "
+          f"1e-6 {frac:.6f}, max abs err {float((algebra - full).abs().max()):.3e}, rel err of "
+          f"mean (log S_T, v_T) {mean_rel:.3e}")
+    check(frac >= 0.9999 and mean_rel <= 1e-6, "qe-algebra is not qe-full to float32 rounding")
+    spot, rate, maturity = d.PARAMS[0], d.PARAMS[2], timeline[-1]
+    for rung in (r for r in RUNGS if r.startswith("qe-")):
+        disc = torch.exp(states[rung][-1, :, 0].double()) * math.exp(-rate * maturity)
+        mean, se = float(disc.mean()), float(disc.std()) / math.sqrt(n)
+        print(f"  {rung}: discounted E[S_T] {mean:.5f} (se {se:.5f}) vs spot {spot}: "
+              f"{abs(mean - spot) / se:.2f} SE")
+        check(abs(mean - spot) <= 4 * se + 0.05, f"{rung}: the discounted spot is no martingale")
+    del states, algebra, full
+    torch.cuda.empty_cache()
 
-        path = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
-                            "cuobjdump")
-        return path if os.access(path, os.X_OK) else None
-    except ImportError:
-        return None
-
-
-def sass_of(built) -> str:
-    """cuobjdump -sass of a built kernel library ('' without cuobjdump)."""
-    tool = find_cuobjdump()
-    if tool is None:
-        return ""
-    return subprocess.run([tool, "-sass", str(built.path)], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-
-
-def ptxas_frames(log: str):
-    """{kernel: "N bytes stack frame, ...; Used N registers ..."} from nvcc's
-    -Xptxas -v output."""
-    frames, kernel = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            kernel = m.group(1)
-            name = re.search(r"(hybrid_kernel|table_kernel|heston_qe_kernel)(I\w*?EEv)?", kernel)
-            if name:  # hybrid_kernelILi4ELb1EEv... -> hybrid_kernel<4,1>
-                args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
-                kernel = name.group(1) + (f"<{','.join(args)}>" if args else "")
-            continue
-        if kernel and "stack frame" in line:
-            frames[kernel] = line.strip()
-        elif kernel and "registers" in line:
-            frames[kernel] = f"{frames.get(kernel, '')}; {line.split(':', 1)[-1].strip()}"
-    return frames
-
-
-def sass_functions(text: str):
-    """{kernel name: [(address, instruction, branch target or None)]} from
-    cuobjdump -sass output."""
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(m.group(1), [])
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m and cur is not None:
-            t = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", m.group(2))
-            cur.append((int(m.group(1), 16), m.group(2), int(t.group(1), 16) if t else None))
-    return funcs
-
-
-def substep_loop(ins):
-    """The substep loop of a path kernel's SASS: (its instructions, the
-    addresses of its slow paths).  The loop is the innermost one that holds
-    a Philox call (ten rounds of two 32-bit multiplies), or the innermost
-    loop where no draw is read (a deterministic CIR++ block alone); a slow
-    path is a region a forward branch inside it skips that holds
-    local-memory or CALL instructions: the large-argument sincos reduction
-    and the special cases of IEEE division and square root."""
-    loops = [(t, a) for a, op, t in ins if t is not None and t < a]
-    philox = [(t, a) for t, a in loops
-              if sum(bool(re.search(r"\bIMAD\.(WIDE|HI)\.U32\b", o))
-                     for x, o, _ in ins if t <= x <= a) >= 10]
-    loops = philox or loops
-    lo, hi = min(loops, key=lambda r: r[1] - r[0])
-    body = [i for i in ins if lo <= i[0] <= hi]
-    slow = set()
-    for a, op, t in body:
-        if t is not None and t > a and op.startswith("@"):
-            region = [x for x, o, _ in body if a < x < t]
-            if any(re.search(r"\b(STL|LDL|CALL)", o) for x, o, _ in body if a < x < t):
-                slow.update(region)
-    return body, slow
-
-
-class IssueSlots:
-    """Issued instructions per path-substep of a path kernel, counted from
-    its SASS (the instructions of the substep loop less its slow paths,
-    which these launches never enter), and the least time the SMs' issue
-    slots need for them: instructions x path-substeps / (132 SMs x 4
-    schedulers x 32 lanes x the SM clock)."""
-
-    def __init__(self, clock_mhz: float):
-        self.clock_hz = clock_mhz * 1e6
-        self._sass = {}
-
-    def functions(self, built):
-        if built.path not in self._sass:
-            self._sass[built.path] = sass_functions(sass_of(built))
-        return self._sass[built.path]
-
-    def per_substep(self, built, kernel: str):
-        """Instructions per path-substep of the first kernel whose name holds
-        ``kernel`` (None without cuobjdump)."""
-        funcs = self.functions(built)
-        name = next((n for n in funcs if kernel in n), None)
-        if name is None:
-            return None
-        body, slow = substep_loop(funcs[name])
-        return len(body) - len(slow)
-
-    def slot_ms(self, label, built, kernel, path_substeps):
-        n = self.per_substep(built, kernel)
-        if n is None:
-            print(f"[sass] {label}: not measured (no cuobjdump)")
-            return None
-        ms = n * path_substeps / (ISSUE_LANES_PER_CYCLE * self.clock_hz) * 1e3
-        print(f"[sass] {label}: {n} instructions per path-substep -> issue-slot time {ms:.4f} ms "
-              f"over {path_substeps:.3e} path-substeps at {self.clock_hz / 1e6:.0f} MHz")
-        return ms
+    heston_ladder_paths.rung_launches = dict.fromkeys(RUNGS, 0)
+    table = d.decompose(device, issue)
+    launches = dict(heston_ladder_paths.rung_launches)
+    d.print_table(table)
+    substeps = n * live_substeps(timeline, steps)
+    for rung, r in zip(RUNGS, table):
+        launch_ms, wrapper_ms = split_ms(k3_module, lambda: d.run(rung, params))
+        t_bound, by = bound(len(timeline) * n * 8, substeps * K3_OPS_PER_SUBSTEP[rung])
+        rows[rung].update(launches=launches[rung], ms=r["single_ms"], bound_ms=t_bound,
+                          bound_by=by, library_ms=None, launch_ms=launch_ms,
+                          wrapper_ms=wrapper_ms, marginal_ms=r["marginal_ms"],
+                          issue_ms=r["issue_ms"])
+        print(f"[time] K3 heston_ladder[{rung}]: call {r['single_ms']:.4f} ms, launch-only "
+              f"{launch_ms:.4f} ms, wrapper {wrapper_ms:.4f} ms (host), marginal "
+              f"{r['marginal_ms']:.4f} ms, bound {t_bound:.4f} ms by {by}, launches "
+              f"{launches[rung]}")
+    check(all(launches[rung] > 0 for rung in RUNGS), f"a rung never launched: {launches}")
+    print(f"[time] K3 ladder phase: {time.perf_counter() - t0:.1f} s")
+    return list(rows.values())
 
 
 # The stack a kernel may have: the 7-word reduction array of sincosf's
@@ -2617,7 +2624,8 @@ SINCOS_STACK_BYTES = 32
 # Every kernel instance of each source, as ptxas_frames names them.
 KERNELS = {"heston_qe": ["heston_qe_kernel<0,0>", "heston_qe_kernel<0,1>",
                          "heston_qe_kernel<1,0>", "heston_qe_kernel<1,1>"],
-           "hybrid_paths": ["hybrid_kernel<0>", "hybrid_kernel<1>", "table_kernel"]}
+           "hybrid_paths": ["hybrid_kernel<0>", "hybrid_kernel<1>", "table_kernel"],
+           "heston_ladder": [f"heston_ladder_kernel<{i}>" for i in range(len(RUNGS))]}
 
 
 def local_memory_gate(name, built):
@@ -2753,16 +2761,15 @@ def main():
     # concurrently; no kernel may spill, and none may keep more on its
     # stack than sincosf's reduction array
     builds = cuda_build.load_libraries(
-        [("heston_qe", ())] + [("hybrid_paths", k2_module.role_flags(b)) for b in k2_block_tuples()])
+        [("heston_qe", ()), ("heston_ladder", ())]
+        + [("hybrid_paths", k2_module.role_flags(b)) for b in k2_block_tuples()])
     for (name, extra), built in builds.items():
         how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
         print(f"[build] {name} {' '.join(extra)}: {how} -> {built.path.name}")
         for kernel, frame in ptxas_frames(built.log).items():
             print(f"  {kernel}: {frame}")
         local_memory_gate(name, built)
-    issue = IssueSlots(float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]))
+    issue = IssueSlots.from_card()
 
     # 3a. K1 vs plain version at the Heston path's shapes
     params32 = heston_params(device)
@@ -2786,6 +2793,16 @@ def main():
     print(f"  kernel {k1_ms:.3f} ms ({k1_substeps / k1_ms * 1e3:.3e} path-steps/s), "
           f"plain {k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
           f"({k1_bound[0] / k1_ms:.1%} of it reached)")
+    k1_sass = issue.per_substep(builds["heston_qe", ()], "heston_qe_kernelILb0ELb0E",
+                                nested_loops=False)
+    print(f"  K1 beside its build before the shared QE header, both counted without nested "
+          f"loops as slow paths: {'not measured' if k1_sass is None else format(k1_sass, 'g')} "
+          f"instructions per path-substep (before: {K1_SASS_BEFORE}), launch-only "
+          f"{k1_launch_ms:.4f} ms (before: {K1_LAUNCH_MS_BEFORE} ms, NVIDIA H100 80GB HBM3, "
+          f"700.00 W)")
+    check(k1_sass is not None and abs(k1_sass - K1_SASS_BEFORE) <= K1_SASS_SLACK,
+          f"K1's substep is {k1_sass} instructions, not its earlier build's {K1_SASS_BEFORE} "
+          f"within {K1_SASS_SLACK} (none without cuobjdump)")
 
     # 3b. K2 and its table prologue vs their plain versions at the north-star
     # shapes (both phases), on ragged and misaligned launches, and K1 and K2
@@ -2806,6 +2823,10 @@ def main():
 
     # 3c. the K2 ladder: every (block, scheme) at its book's shapes
     rows = k2_ladder(device, issue)
+
+    # 3d. the substep ladder K3: every rung against its plain version and
+    # K1, then its main path, the decomposition tool's run, counts from 0
+    k3_rows = k3_ladder(issue)
 
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
@@ -2859,7 +2880,7 @@ def main():
     ns_row["launches"] += hessian_launches["north star"]
     table_json["launches"] += hessian_launches["hybrid_table, north star"]
     k2_rows = [ns_row, ks_row, *rows.values(), table_json]
-    check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows),
+    check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows + k3_rows),
           "a kernel of the main paths never launched")
 
     # 8. the BS-multi and mixed books' device busy shares, after every wall
@@ -2887,7 +2908,7 @@ def main():
         "launch_ms": k1_launch_ms,
         "wrapper_ms": k1_wrapper_ms,
     }
-    print(json.dumps({"kernels": [k1_row] + k2_rows}))
+    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2920,8 +2941,10 @@ def hessian_main():
     Hessian phases, each with its counts from 0 (one K1 or K2 launch, and
     one prologue launch, per simulation phase for the whole run), then the
     samplers and streaming phases that launch no kernel, then the
-    Hessians' launches by row as the last line's JSON."""
+    Hessians' launches by row as the last line's JSON.  Its allocator keeps
+    to HESSIAN_PROCESS_MEMORY_FRACTION of the card."""
     card()
+    torch.cuda.set_per_process_memory_fraction(HESSIAN_PROCESS_MEMORY_FRACTION)
     t0 = time.perf_counter()
     launches = {"heston_qe": heston_hessian()}
     torch.cuda.empty_cache()

@@ -13,12 +13,13 @@
 //     noise-emitting variant also writes z [T, N, 2] and u [T, N].
 //   * What bounds it: the SMs' issue slots.  Per substep one Philox4x32-10
 //     call, a Box-Muller pair (logf, sqrtf, one sincosf), the QE update
-//     (IEEE divisions, sqrtf, logf): 414 issued instructions (read from the
-//     SASS by chip_smoke.py), and at the Heston book's shapes an H100
-//     (700 W) launch takes about that issue-slot time.  The scalars that
-//     depend only on (params, dt) are computed once per timeline point, as
+//     (IEEE divisions, sqrtf, logf; heston_qe_step.cuh, shared with the
+//     substep ladder heston_ladder.cu, which splits this count by stage):
+//     304 issued instructions outside the slow paths (read from the SASS
+//     by ops/sass.py).  The scalars that depend only on (params, dt) are
+//     computed once per timeline point, as
 //     _heston_qe_substep hoists them; per-point dts come in a small table
-//     passed by value (the kernel parameter space is constant memory).
+//     passed by value (mcre::PointTable, heston_qe_step.cuh).
 //   * No host sync: the seven parameters are a device f32 vector [spot,
 //     sigma, rate, rho, kappa, theta, v0] (the wrapper's torch.stack, rounded
 //     once from the caller's dtype), read once per thread.
@@ -35,21 +36,14 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
+#include "heston_qe_step.cuh"
 #include "random.cuh"
 
 namespace {
 
-constexpr int kMaxPoints = 512;
-constexpr int kThreads = 256;
-constexpr float kEps = (float)1e-12;
-constexpr float kClipP = (float)(1.0 - 1e-6);
-constexpr float kInvSixTenths = (float)(1.0 / 0.6);
-
-struct PointTable {
-  float dt[kMaxPoints];
-};
+using mcre::kThreads;
+using mcre::PointTable;
 
 // The emitting instances take four blocks per SM (at most 64 registers):
 // left to itself ptxas gave them 48 registers and spilled.
@@ -72,19 +66,7 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
     const float dt = table.dt[point];
     const size_t row = (size_t)point * num_paths + path;
     if (dt > 0.0f) {
-      // ---- scalars (params x dt only) ----
-      const float ekt = expf(-kappa * dt);
-      const float one_m_ekt = 1.0f - ekt;
-      const float sig2 = sigma * sigma;
-      const float c_m = theta * one_m_ekt;
-      const float c1 = sig2 * ekt * one_m_ekt / kappa;
-      const float c2 = theta * sig2 * one_m_ekt * one_m_ekt / (2.0f * kappa);
-      const float k0 = -rho * kappa * theta / sigma * dt;
-      const float k1 = (kappa * rho / sigma - 0.5f) * dt - rho / sigma;
-      const float k2 = rho / sigma;
-      const float k3 = (1.0f - rho * rho) * dt;
-      const float drift = rate * dt + k0;
-
+      const mcre::QeScalars c = mcre::qe_scalars(dt, sigma, rate, rho, kappa, theta);
       float z_s = 0.0f, z_v = 0.0f, u = 0.0f;
       for (int k = 0; k < num_steps; ++k) {
         const uint4 w = mcre::philox4x32_10(
@@ -93,37 +75,7 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
         u = mcre::uniform_from_word(w.z);
         z_s = zz.x;
         z_v = zz.y;
-
-        // ---- per-path QE update ----
-        const float m = c_m + v * ekt;
-        const float s2 = v * c1 + c2;
-        const float m2 = m * m + kEps;
-        const float psi = s2 / m2;
-        const float inv_psi = m2 / (s2 + kEps);
-
-        const float tail = fmaxf(2.0f * inv_psi - 1.0f, 0.0f);
-        const float b2 = fmaxf(tail + sqrtf(2.0f * inv_psi * tail), 0.0f);
-        const float a = m / (1.0f + b2);
-        const float sb2_z = sqrtf(b2) + z_v;
-        const float v_quad = a * (sb2_z * sb2_z);
-
-        const float p = fminf(fmaxf((psi - 1.0f) / (psi + 1.0f), 0.0f), kClipP);
-        const float one_m_p = 1.0f - p;
-        const float v_tail = logf(fmaxf(one_m_p, kEps) / fmaxf(1.0f - u, kEps)) *
-                             (m + kEps) / (one_m_p + kEps);
-        float v_next;
-        if (kSmooth) {
-          const float w_mass = fminf(fmaxf((u - p + 0.3f) * kInvSixTenths, 0.0f), 1.0f);
-          const float v_exp = w_mass * v_tail;
-          const float wsw = fminf(fmaxf(psi - 1.0f, 0.0f), 1.0f);
-          v_next = (1.0f - wsw) * v_quad + wsw * v_exp;
-        } else {
-          const float v_exp = (u > p) ? v_tail : 0.0f;
-          v_next = (psi > 1.5f) ? v_exp : v_quad;
-        }
-        const float vol = sqrtf(fmaxf(k3 * v, kEps));
-        log_s = (log_s + drift) + k1 * v + k2 * v_next + vol * z_s;
-        v = v_next;
+        mcre::qe_update<kSmooth>(c, z_s, z_v, u, log_s, v);
       }
       if (kEmit) {
         zs[row] = make_float2(z_s, z_v);
@@ -160,15 +112,12 @@ extern "C" int mcre_heston_qe_paths(void* states, void* z, void* u,
                                     const void* params, uint32_t seed,
                                     uint32_t phase, int smoothing,
                                     int emit_noise, void* stream) {
-  if (num_points < 0 || num_points > kMaxPoints || num_steps < 1 ||
-      num_paths == 0 || states == nullptr || params == nullptr ||
+  if (!mcre::valid_paths_launch(num_points, num_steps, num_paths, states, params) ||
       (emit_noise && (z == nullptr || u == nullptr || num_steps != 1))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaGetLastError();  // clear a stale error so the return value is this launch's
-  PointTable table;
-  memset(&table, 0, sizeof(table));
-  memcpy(table.dt, dts, sizeof(float) * (size_t)num_points);
+  const PointTable table = mcre::point_table(dts, num_points);
   const auto* prm = static_cast<const float*>(params);
   auto* s = static_cast<float2*>(states);
   auto* zz = static_cast<float2*>(z);

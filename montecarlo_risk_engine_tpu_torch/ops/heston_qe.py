@@ -48,11 +48,15 @@ MAX_POINTS = 512
 
 
 def heston_qe_substep(log_s, v, z_s, z_v, u, dt, sigma, rate, rho, kappa, theta,
-                      smoothing: bool = False):
+                      smoothing: bool = False, algebra: bool = False):
     """One Andersen-QE update with the algebra of the TPU kernel's
     ``_heston_qe_substep`` (pallas_paths.py:79) and of the CUDA kernel, op
-    for op: parameters are 0-d tensors, ``dt`` a float.  ``smoothing``
-    selects the fuzzy branch indicators (widths 0.3 and 0.5)."""
+    for op (``csrc/heston_qe_step.cuh``): parameters are 0-d tensors, ``dt``
+    a float.  ``smoothing`` selects the fuzzy branch indicators (widths 0.3
+    and 0.5); ``algebra`` the substep ladder's division-reduced update
+    (hard branches only; ``ops/heston_ladder.heston_qe_substep_algebra``)."""
+    if smoothing and algebra:
+        raise ValueError("the division-reduced update has hard branches only")
     # ---- scalars (params x dt only) ----
     ekt = torch.exp(-kappa * dt)
     one_m_ekt = 1.0 - ekt
@@ -70,7 +74,7 @@ def heston_qe_substep(log_s, v, z_s, z_v, u, dt, sigma, rate, rho, kappa, theta,
     m = c_m + v * ekt
     s2 = v * c1 + c2
     m2 = m * m + _EPS
-    psi = s2 / m2
+    psi = None if algebra else s2 / m2
     inv_psi = m2 / (s2 + _EPS)
 
     tail = torch.clamp(2.0 * inv_psi - 1.0, min=0.0)
@@ -79,7 +83,8 @@ def heston_qe_substep(log_s, v, z_s, z_v, u, dt, sigma, rate, rho, kappa, theta,
     sb2_z = torch.sqrt(b2) + z_v
     v_quad = a * (sb2_z * sb2_z)
 
-    p = torch.clamp((psi - 1.0) / (psi + 1.0), 0.0, 1.0 - 1e-6)
+    p_raw = (s2 - m2) / (s2 + m2) if algebra else (psi - 1.0) / (psi + 1.0)
+    p = torch.clamp(p_raw, 0.0, 1.0 - 1e-6)
     one_m_p = 1.0 - p
     v_tail = (
         torch.log(torch.clamp(one_m_p, min=_EPS) / torch.clamp(1.0 - u, min=_EPS))
@@ -94,7 +99,7 @@ def heston_qe_substep(log_s, v, z_s, z_v, u, dt, sigma, rate, rho, kappa, theta,
         v_next = (1.0 - w) * v_quad + w * v_exp
     else:
         v_exp = torch.where(u > p, v_tail, torch.zeros_like(v_tail))
-        v_next = torch.where(psi > 1.5, v_exp, v_quad)
+        v_next = torch.where(s2 > 1.5 * m2 if algebra else psi > 1.5, v_exp, v_quad)
 
     vol = torch.sqrt(torch.clamp(k3 * v, min=_EPS))
     log_s_next = (log_s + drift) + k1 * v + k2 * v_next + vol * z_s
