@@ -51,6 +51,11 @@ plain PyTorch version:
     PERF.md section 4); the Heston book with ``sampler="sobol"`` and the
     Brownian bridge, a Black-Scholes call's Sobol error against the
     pseudo-random SE, and the BS-multi book with antithetic pairs;
+  * path sharding: the north-star book on two ranks that share the card
+    over gloo (``SimulationController(path_sharding=...)``, each rank on
+    its own paths, K2 at its path offset and stride), forward at 1e6 + 1e6
+    paths and differentiated at 2^18 + 2^18 in both jacobian modes, and
+    forward on one rank over NCCL, each against one process;
   * the Heston-QE substep ladder K3 (``heston_ladder_paths``, nine rungs
     over K1's stages) through its decomposition tool,
     ``montecarlo_risk_engine_tpu_torch.tools.kernel_decomposition``, at the
@@ -83,6 +88,11 @@ Phases:
      0.05 of the spot; then its main path, the decomposition tool's run
      (single and marginal times, instructions per path-substep and what
      each rung adds), counts from 0 and read, and each rung's split;
+  3e. K1 (forward and noise-emitting) and K2 at the north-star shapes at
+     path (offset, stride) (0, 2), (1, 2) and (1, 4) under
+     set_sync_debug_mode("error"): bitwise the whole launch's strided
+     columns and the plain version at the same offset and stride
+     (``strided_launches``);
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
@@ -96,6 +106,15 @@ Phases:
      CVA against the JAX package's 16M-path value, EPE and PFE printed, the
      kernel-route values and CVA/EPE jacobian against the engine route's
      on the same stream;
+  6b. the sharded north star (``sharded_north_star``): one process's runs
+     first (forward at 1e6, differentiated at 2^18 in fwd and rev mode),
+     then two rank processes of this file (``--shard-rank``) on the card
+     over gloo, a FileStore in a temporary directory, then one over NCCL
+     (forward): each rank counts its own launches from 0 (one K2 and one
+     prologue launch per phase per run) and prints its warm walls, peak
+     memory and its collectives' share of the host time; every rank's CVA,
+     EPE and PFE bitwise one process's, their errors within 1 ulp, the
+     jacobians within rtol 1e-8; a rank that fails fails the smoke;
   7. the other K2 routes, each with its counts from 0 and its own oracle;
   7a. kernel-streaming AD on K2 at 2^22, with the card to itself, its
      counts from 0 (one K2 and one prologue launch per phase), against the
@@ -144,16 +163,21 @@ run beside 7b, whose books are host-bound too, it leaves the smoke inside
 its time limit (the walls of both carry the other's load on the card).
 
 ``--split-only`` runs only the call / launch-only / wrapper split of K1
-and K2 at the main paths' shapes, the warm walls of the three books and
-the north-star forward run's host profile, for the package beside this
-file; a copy of the file run from another
+and K2 at the main paths' shapes, K1's substep loop by opcode, the warm
+walls of the three books and of the CVA and mixed books, the north-star
+forward run's host profile and the CVA and mixed books' kernel launches,
+for the package beside this file (``--books-only``: K1's opcodes and the
+CVA and mixed books' walls alone); a copy of the file run from another
 checkout's root measures that tree the same way (parent and change in
 turns, in one call).
 
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
-    python3 chip_smoke.py [--split-only | --hessians-only]
+    python3 chip_smoke.py [--split-only [--books-only] | --hessians-only]
+
+(``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
+rank of phase 6b, started by the smoke itself.)
 """
 
 from __future__ import annotations
@@ -821,6 +845,200 @@ def north_star_main_path():
             # quantile, which float32 and float64 paths may rank apart.
             np.testing.assert_allclose(jk, je, rtol=1e-3, atol=1e-6)
     return launches
+
+
+# -- path sharding --------------------------------------------------------------------
+
+SHARD_WORLD = 2                # ranks sharing the card over gloo
+SHARD_PATHS = NS_PATHS         # forward: main and presim paths
+SHARD_DIFF_PATHS = 1 << 18     # differentiated, both jacobian modes, cut from 1e6
+SHARD_CHUNK = 16               # tangents (fwd) or cotangents (rev) a sweep: P = 11, V = 59
+SHARD_TIMEOUT_S = 420
+
+
+def strided_launches(k1_params, k2_args):
+    """Phase 3e: K1 (forward and noise-emitting) and K2 at the north-star
+    shapes launched at (path offset r, stride R) = (0, 2), (1, 2) and (1, 4),
+    under set_sync_debug_mode("error"): each equal to the whole launch's
+    [:, r::R] columns bitwise, and to its plain version at the same offset
+    and stride bitwise."""
+    blocks, chol, params, dense, n_k2, steps = k2_args
+    k1_dense, _ = dense_timeline(0.0, MATURITIES, NUM_STEPS)
+    k1_runs = {
+        "K1": lambda fn, n, **kw: fn(k1_params, MATURITIES, n, NUM_STEPS, seed=SEED, phase=PHASE,
+                                     **kw),
+        "K1 emit": lambda fn, n, **kw: fn(k1_params, k1_dense, n, 1, seed=SEED, phase=PHASE,
+                                          emit_noise=True, **kw),
+    }
+    runs = {**{name: (run, heston_qe_paths, heston_qe_paths_reference, NUM_PATHS)
+               for name, run in k1_runs.items()},
+            "K2": (lambda fn, n, **kw: fn(blocks, chol, params, dense, n, steps, seed=SEED,
+                                          phase=PHASE, **kw),
+                   hybrid_paths, hybrid_paths_reference, n_k2)}
+    for name, (run, kernel, plain, n) in runs.items():
+        whole = run(kernel, n)
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        for offset, stride in ((0, 2), (1, 2), (1, 4)):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                part = run(kernel, n // stride, path_offset=offset, path_stride=stride)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ref = run(plain, n // stride, path_offset=offset, path_stride=stride)
+            part = part if isinstance(part, tuple) else (part,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for w, p, q in zip(whole, part, ref):
+                check(torch.equal(p, w[:, offset::stride]),
+                      f"{name} at offset {offset}, stride {stride}: not the whole launch's columns")
+                check(torch.equal(p, q),
+                      f"{name} at offset {offset}, stride {stride}: not its plain version")
+            del part, ref
+        del whole
+        print(f"[strided] {name} at (offset, stride) (0, 2), (1, 2), (1, 4), {n} paths: bitwise the "
+              f"whole launch's columns and the plain version's, no host sync")
+    torch.cuda.empty_cache()
+
+
+def shard_results(c, results, key):
+    """The north star's values, errors and, if differentiated, jacobian."""
+    names = (f"cva[{CP}]", "epe", "pfe[0.95]")
+    out = {f"{key}.values": np.concatenate([np.atleast_1d(results.get_results("north_star", m))
+                                            for m in names]),
+           f"{key}.errors": np.concatenate([np.atleast_1d(results.get_mc_error("north_star", m))
+                                            for m in names])}
+    if c.differentiate:
+        out[f"{key}.jac"] = np.concatenate([ns_jacobian(results, m) for m in names])
+    return out
+
+
+def shard_rank_main(argv):
+    """``--shard-rank r --world R --store F --backend gloo|nccl --out D``: one
+    rank of phase 6b on card 0.  Runs the north star on its share of the
+    paths, forward at SHARD_PATHS (cold, then two warm runs) and, with gloo,
+    differentiated at SHARD_DIFF_PATHS in both jacobian modes; checks one K2
+    and one prologue launch per phase per run; writes its results, walls,
+    peak memory and collectives' host time to ``D/rank<r>.npz``."""
+    from montecarlo_risk_engine_tpu_torch.parallel import collectives, distributed
+
+    opts = dict(zip(argv[::2], argv[1::2]))
+    rank, world, backend = int(opts["--shard-rank"]), int(opts["--world"]), opts["--backend"]
+    card()
+    store = torch.distributed.FileStore(opts["--store"], world)
+    sharding = distributed.initialize_and_make_sharding(
+        rank, world, store=store, device="cuda:0", shared_device=backend == "gloo")
+    check(torch.distributed.get_backend() == backend, f"rank {rank} runs {torch.distributed.get_backend()}")
+    out, stats = {}, {}
+    try:
+        runs = [("forward", SHARD_PATHS, False, "auto")]
+        if backend == "gloo":
+            runs += [("fwd", SHARD_DIFF_PATHS, True, "fwd"), ("rev", SHARD_DIFF_PATHS, True, "rev")]
+        for key, n, diff, mode in runs:
+            c = north_star(n, diff, path_sharding=sharding, grad_mode=mode,
+                           grad_chunk_size=SHARD_CHUNK)
+            check(c._kernel_active, f"rank {rank}: the sharded north star is off the kernel route")
+            reset_k2_counts()
+            results = c.run_simulation()
+            check(hybrid_paths.launches == 2 and k2_module.hybrid_table.launches == 2,
+                  f"rank {rank} {key}: {hybrid_paths.launches} K2 and "
+                  f"{k2_module.hybrid_table.launches} prologue launches, not one each per phase")
+            torch.cuda.reset_peak_memory_stats()
+            collectives.reset_stats()
+            walls = []
+            for _ in range(2 if key == "forward" else 1):
+                walls.append(wall_seconds(lambda: c.run_simulation()))
+            stats[key] = dict(walls=walls, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              collective_calls=collectives.stats["calls"] / len(walls),
+                              collective_s=collectives.stats["seconds"] / len(walls),
+                              mode=c._grad_mode_resolved if diff else "forward")
+            out.update(shard_results(c, results, key))
+            del c, results
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(os.path.join(opts["--out"], f"rank{rank}.npz"), **out)
+    with open(os.path.join(opts["--out"], f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+
+
+def launch_shard_ranks(world, backend, out_dir):
+    """Start ``world`` rank processes of this file on card 0 (a FileStore in
+    ``out_dir``) and wait for them; a rank that fails fails the smoke."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r), "--world", str(world),
+         "--store", os.path.join(out_dir, "store"), "--backend", backend, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=SHARD_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{backend} rank {r} of {world} failed (exit {p.returncode}):\n"
+                                 f"{log[-6000:]}")
+    return [(dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))),
+             json.load(open(os.path.join(out_dir, f"rank{r}.json")))) for r in range(world)]
+
+
+def within_ulps(a, b, ulps: int) -> bool:
+    return bool(np.all(np.abs(a - b) <= ulps * np.spacing(np.maximum(np.abs(a), np.abs(b)))))
+
+
+def sharded_north_star():
+    """Phase 6b: the north star on two ranks that share the card over gloo
+    (forward at SHARD_PATHS, differentiated at SHARD_DIFF_PATHS in both
+    jacobian modes), then forward on one rank over NCCL, against one process
+    on the same stream: values bitwise, errors within 1 ulp, jacobians rtol
+    1e-8; each rank one K2 and one prologue launch per phase."""
+    import tempfile
+
+    one, walls1 = {}, {}
+    for key, n, diff, mode in (("forward", SHARD_PATHS, False, "auto"),
+                               ("fwd", SHARD_DIFF_PATHS, True, "fwd"),
+                               ("rev", SHARD_DIFF_PATHS, True, "rev")):
+        c = north_star(n, diff, grad_mode=mode, grad_chunk_size=SHARD_CHUNK)
+        results = c.run_simulation()
+        torch.cuda.reset_peak_memory_stats()
+        walls1[key] = (wall_seconds(lambda: c.run_simulation()),
+                       torch.cuda.max_memory_allocated() / 2**30)
+        one.update(shard_results(c, results, key))
+        del c, results
+        torch.cuda.empty_cache()
+    for backend, world in (("gloo", SHARD_WORLD), ("nccl", 1)):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = launch_shard_ranks(world, backend, tmp)
+            print(f"[sharded north star] {world} rank(s) over {backend} on one card: "
+                  f"{time.perf_counter() - t0:.1f} s with start-up")
+        for r, (res, stats) in enumerate(ranks):
+            for key, st in stats.items():
+                wall = statistics.median(st["walls"])
+                print(f"  rank {r} {key} ({st['mode']}): warm wall {wall:.4f} s (one process "
+                      f"{walls1[key][0]:.4f} s), peak {st['peak_gib']:.2f} GiB (one process "
+                      f"{walls1[key][1]:.2f} GiB), {st['collective_calls']:.0f} collectives "
+                      f"{st['collective_s']:.4f} s = {st['collective_s'] / wall:.1%} of the wall")
+            for field, want in one.items():
+                key = field.split(".")[0]
+                if key not in stats:
+                    continue
+                got = res[field]
+                check(got.shape == want.shape, f"rank {r} {field}: shape {got.shape}")
+                if field.endswith(".values"):
+                    gap = float(np.max(np.abs(got - want)))
+                    check(np.array_equal(got, want), f"{backend} rank {r} {field}: not bitwise "
+                                                     f"one process's (max gap {gap:.3e})")
+                elif field.endswith(".errors"):
+                    check(within_ulps(got, want, 1), f"{backend} rank {r} {field}: beyond 1 ulp")
+                else:
+                    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-12,
+                                               err_msg=f"{backend} rank {r} {field}")
+        print(f"  {backend}: every rank's CVA, EPE and PFE bitwise one process's, errors within "
+              f"1 ulp{', jacobians (fwd and rev) within rtol 1e-8' if backend == 'gloo' else ''}")
 
 
 # -- samplers and streaming ----------------------------------------------------------
@@ -2711,17 +2929,72 @@ def host_profile(label, run, top: int = 25, focus: str = "ops/hybrid_paths"):
     print(f"[host profile {label}]\n{text.getvalue()}")
 
 
-def split_main():
+def k1_loop_opcodes():
+    """{rule: {opcode: count}} of K1's substep loop outside its slow paths,
+    by the current count (a nested loop is a slow path) and by the older
+    one (``nested_loops=False``), from the SASS of this tree's build
+    (ops/sass.py): the instructions behind the issue-slot count, so that
+    two trees' counts can be told apart."""
+    from collections import Counter
+
+    from montecarlo_risk_engine_tpu_torch.ops.sass import sass_functions, sass_of, substep_loop
+
+    funcs = sass_functions(sass_of(cuda_build.load_library("heston_qe", ())))
+    name = next(n for n in funcs if "heston_qe_kernelILb0ELb0E" in n)
+    out = {}
+    for rule, nested in (("current", True), ("older", False)):
+        body, slow = substep_loop(funcs[name], nested)
+        ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+                      for a, op, _ in body if a not in slow)
+        out[rule] = dict(sorted(ops.items()))
+        print(f"[sass K1 loop, {rule} count] {sum(ops.values())} instructions: "
+              f"{json.dumps(out[rule])}")
+    return out
+
+
+def book_walls(out, launches: bool = True):
+    """Warm walls of the CVA book (forward, and differentiated in reverse
+    mode) and of the mixed book (forward, and differentiated per family),
+    and with ``launches`` the CUDA kernels one warm forward run of each
+    launches (the profiler's device events, minutes to read back)."""
+    walls = {
+        "cva book forward": warm_walls(cva_controller, 3),
+        "cva book differentiated": warm_walls(lambda: cva_controller(differentiate=True), 2),
+        "mixed book forward": warm_walls(mixed_controller, 3),
+        "mixed book differentiated": warm_walls(
+            lambda: mixed_controller(by_family=True, differentiate=True), 2),
+    }
+    for name, w in walls.items():
+        print(f"[wall] {name}: {', '.join(f'{x:.4f}' for x in w)} s")
+    out["book walls"] = walls
+    if not launches:
+        return
+    for label, make in (("cva book forward", cva_controller),
+                        ("mixed book forward", mixed_controller)):
+        c = make()
+        c.run_simulation()
+        profile_run(label, c.run_simulation, host_ops=False)
+        del c
+        torch.cuda.empty_cache()
+
+
+def split_main(books_only: bool = False):
     """``--split-only``: for the tree this file sits in, K1's and K2's call,
     launch-only and wrapper times at the main paths' shapes (K1 on the Heston
-    book, K2 on the north star and on the BS-multi book), the warm walls of
-    the three books forward and differentiated, and the north-star forward
-    run's host time by function and its device busy share, then one JSON
-    line.  A
-    copy of this file run from another checkout's root measures that tree
-    the same way, so one call can run two trees in turns."""
+    book, K2 on the north star and on the BS-multi book), K1's substep loop
+    by opcode, the warm walls of the three books forward and differentiated
+    and of the CVA and mixed books, the north-star forward run's host time
+    by function and its device busy share, and the CVA and mixed books'
+    kernel launches, then one JSON line; ``books_only``: K1's opcodes and
+    the CVA and mixed books' walls alone.  A copy of this file run from another
+    checkout's root measures that tree the same way, so one call can run two
+    trees in turns."""
     device, _ = card()
-    out = {}
+    out = {"K1 loop opcodes": k1_loop_opcodes()}
+    if books_only:
+        book_walls(out, launches=False)
+        print(json.dumps(out))
+        return
     p32 = heston_params(device)
     out["K1"] = call_split("K1 heston_qe_paths, Heston book", k1_module, lambda: heston_qe_paths(
         p32, MATURITIES, NUM_PATHS, NUM_STEPS, seed=SEED, phase=PHASE))
@@ -2747,9 +3020,15 @@ def split_main():
     }
     for name, w in walls.items():
         print(f"[wall] {name}: {', '.join(f'{x:.4f}' for x in w)} s")
+    out["walls"] = walls
+    del ns_fwd
+    torch.cuda.empty_cache()
+    book_walls(out)
+    ns_fwd = north_star(NS_PATHS, False)
+    ns_fwd.run_simulation()
     host_profile("north star forward", ns_fwd.run_simulation)
     profile_run("north star forward", ns_fwd.run_simulation)  # last: it slows what follows
-    print(json.dumps({"split": out, "walls": walls}))
+    print(json.dumps(out))
 
 
 def main():
@@ -2828,6 +3107,9 @@ def main():
     # K1, then its main path, the decomposition tool's run, counts from 0
     k3_rows = k3_ladder(issue)
 
+    # 3e. K1 and K2 at a path offset and stride (a rank of a sharded run)
+    strided_launches(params32, (blocks, chol, ns_params32, ns_dense, NS_PATHS, 1))
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
@@ -2843,6 +3125,10 @@ def main():
     check(table_json["launches"] == hybrid_paths.launches, "prologue launches differ")
     torch.cuda.empty_cache()
     print(f"[time] main paths done after {time.perf_counter() - t_start:.1f} s")
+    # 6b. the north star on two ranks sharing the card (gloo), then on one
+    # rank over NCCL, against one process; the ranks count their own launches
+    sharded_north_star()
+    print(f"[time] sharded north star done after {time.perf_counter() - t_start:.1f} s")
     basket_phase()
     for label, spec in route_specs().items():
         rows[label]["launches"] = route_phase(spec)
@@ -2963,8 +3249,10 @@ def hessian_main():
 
 if __name__ == "__main__":
     if "--split-only" in sys.argv[1:]:
-        split_main()
+        split_main(books_only="--books-only" in sys.argv[1:])
     elif "--hessians-only" in sys.argv[1:]:
         hessian_main()
+    elif "--shard-rank" in sys.argv[1:]:
+        shard_rank_main(sys.argv[1:])
     else:
         main()

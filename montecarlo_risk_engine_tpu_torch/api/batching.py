@@ -28,9 +28,13 @@ products emit their realized-state continuations.  Netting happens inside
 the per-asset and per-date loops, so nothing of shape [T_exp, P, N] is
 built for large P.
 
-The JAX package reduces the path axis with ``fixed_tree_sum`` for its
-sharding determinism; the port runs on one card and uses ``torch.sum`` and
-matrix products.  Scatter-adds are out-of-place ``index_add`` and every
+Every path-axis sum (the Gram power sums, the regressions' right-hand
+sides, the exercise fits) is a ``fixed_tree_sum`` (JAX batching.py:304-372,
+944-963, 1286), never a ``torch.sum`` or a matrix product, whose reduction
+order a library picks: under a path sharding (the tables' ``sharding``) a
+rank sums its own paths and the ranks' partials add in a fixed tree, so a
+fit has the same bits on any number of ranks.  Each fit gathers its partials
+once.  Scatter-adds are out-of-place ``index_add`` and every
 solve factors and solves in two steps (``lu_factor_ex``, ``lu_solve``), so
 the executors run under ``torch.func`` transforms to every order.
 """
@@ -44,8 +48,11 @@ import numpy as np
 import torch
 
 from montecarlo_risk_engine_tpu_torch.config import real_dtype
+from montecarlo_risk_engine_tpu_torch.metrics.metrics import fixed_tree_sum, global_count
 from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
 from montecarlo_risk_engine_tpu_torch.ops.gather import RowSelection
+from montecarlo_risk_engine_tpu_torch.ops.noise import matmul_t
+from montecarlo_risk_engine_tpu_torch.parallel.collectives import sum_over_ranks
 from montecarlo_risk_engine_tpu_torch.products.asian_option import AsianAveragingType, AsianOption
 from montecarlo_risk_engine_tpu_torch.products.barrier_option import (
     BarrierOption,
@@ -88,14 +95,16 @@ class ObservableTables:
     """Lazy per-run tables of resolved observables keyed by (kind, asset).
 
     One ``resolve_request_rows`` call per (asset, unique time set), shared by
-    every batch in the book, on the state plane of one simulation phase.
+    every batch in the book, on the state plane of one simulation phase
+    (this rank's ``num_paths`` paths of a run sharded by ``sharding``).
     """
 
-    def __init__(self, model, params, states, num_paths):
+    def __init__(self, model, params, states, num_paths, sharding=None):
         self.model = model
         self.params = params
         self.states = states
         self.num_paths = num_paths
+        self.sharding = sharding
         self.device = (states if isinstance(states, torch.Tensor) else states[0]).device
         self._cache: Dict[Tuple, torch.Tensor] = {}
 
@@ -134,12 +143,13 @@ class EmittedTables:
     observable was resolved inside the path loop, so a query gathers rows of
     the group's [T*K, N] emission tensor."""
 
-    def __init__(self, plan, schedule, emissions, params, num_paths):
+    def __init__(self, plan, schedule, emissions, params, num_paths, sharding=None):
         self.plan = plan
         self.schedule = schedule
         self.emissions = emissions
         self.params = params
         self.num_paths = num_paths
+        self.sharding = sharding
         self.device = next((e.device for e in emissions), torch.device("cpu"))
         self._cache: Dict[Tuple, torch.Tensor] = {}
         self._handles: Optional[Dict[Tuple, int]] = None
@@ -313,7 +323,7 @@ class TerminalBatch:
         numeraire = tables.rows(AtomicRequestType.NUMERAIRE, "numeraire", tidx, t_grid)
         return expl, numeraire
 
-    def _exposure_gram(self, expl, deg: int):
+    def _exposure_gram(self, expl, deg: int, sharding=None):
         """(gram [T, deg, deg], col_scale [T, deg], s1 [T]) of the
         exposure-grid normal equations.
 
@@ -323,20 +333,25 @@ class TerminalBatch:
         temp outgrows [Tc, N]; the implied column equilibration s1^d is
         undone on the solved coefficients.  A ridge of 1e-10 (float64) or
         1e-4 (float32) of the mean diagonal keeps a constant explanatory
-        (t = 0) solvable."""
-        num_dates, n_paths = expl.shape
-        s1 = torch.clamp(torch.sqrt(torch.sum(expl * expl, dim=1) / n_paths), min=1e-30)  # [T]
-        t_chunk = self._date_chunk(deg * n_paths)
-        sums = []
-        for lo in range(0, num_dates, t_chunk):
-            y = expl[lo:lo + t_chunk] / s1[lo:lo + t_chunk, None]
-            pw = torch.ones_like(y)
-            s_list = [torch.full(y.shape[:1], float(n_paths), dtype=y.dtype, device=y.device)]
-            for _ in range(2 * deg - 2):
-                pw = pw * y
-                s_list.append(torch.sum(pw, dim=1))
-            sums.append(torch.stack(s_list))
-        power_sums = torch.cat(sums, dim=1)                              # [2 deg - 1, T]
+        (t = 0) solvable.  ``sharding``: N is this rank's share of the
+        paths."""
+        num_dates, n_local = expl.shape
+        n_paths = global_count(n_local, sharding)
+        s1 = torch.clamp(torch.sqrt(fixed_tree_sum(expl * expl, 1, sharding) / n_paths),
+                         min=1e-30)                                       # [T]
+        t_chunk = self._date_chunk((2 * deg - 2) * n_local)
+        power = [torch.full((1, num_dates), float(n_paths), dtype=expl.dtype, device=expl.device)]
+        if deg > 1:
+            sums = []
+            for lo in range(0, num_dates, t_chunk):
+                y = expl[lo:lo + t_chunk] / s1[lo:lo + t_chunk, None]
+                pw, powers = torch.ones_like(y), []
+                for _ in range(2 * deg - 2):
+                    pw = pw * y
+                    powers.append(pw)
+                sums.append(fixed_tree_sum(torch.stack(powers), -1))   # one tree sum a chunk
+            power.append(sum_over_ranks(torch.cat(sums, dim=1), sharding))
+        power_sums = torch.cat(power)                                    # [2 deg - 1, T]
         col_scale = s1[:, None] ** torch.arange(deg, dtype=s1.dtype, device=s1.device)[None, :]
         hankel = torch.as_tensor(np.add.outer(np.arange(deg), np.arange(deg)), device=s1.device)
         gram = power_sums[hankel].permute(2, 0, 1)                       # [T, deg, deg]
@@ -365,8 +380,8 @@ class TerminalBatch:
         """Regress the masked terminal cashflows on the explanatory spot: one
         Gram per (asset, date), shared by every product on the asset, and one
         batched solve over the grid.  The right-hand sides rhs[t, d, p] =
-        sum_n y^d num[t, n] cf[p, n] are matrix products over chunks of dates
-        and products, never a [T, Pc, N] temp."""
+        sum_n y^d num[t, n] cf[p, n] are tree sums over chunks of products and
+        of dates, the [Tc, Pc, N] temp bounded by ``_date_chunk``."""
         deg = ctx.regression_function.get_degree()
         t_grid = np.array(ctx.exposure_timeline)
         chunk = self._cashflow_chunk(tables.num_paths)
@@ -374,16 +389,20 @@ class TerminalBatch:
         self._exp_coeffs = {}
         for a, p_rows in self._by_asset().items():
             expl, numeraire = self._exposure_grid_obs(tables, ctx, a)
-            gram, col_scale, s1 = self._exposure_gram(expl, deg)
+            gram, col_scale, s1 = self._exposure_gram(expl, deg, tables.sharding)
             cf_chunks = [self._table(f"subset:{a}:{chunk}:{lo}", lambda: self._subset(
                 p_rows[lo:lo + chunk])).cashflows(tables) for lo in range(0, len(p_rows), chunk)]
-            t_chunk = self._date_chunk(deg * expl.shape[1])
             blocks = []
-            for lo in range(0, len(t_grid), t_chunk):
-                w = self._weighted_basis(numeraire, expl, s1, lo, lo + t_chunk, deg)
-                # w: [Tc, deg, N]
-                blocks.append(torch.cat([w @ cf_c.T for cf_c in cf_chunks], dim=-1))
-            rhs = torch.cat(blocks)                                        # [T, deg, Pa]
+            for cf_c in cf_chunks:
+                # rhs[t, d, p] = sum_n w[t, d, n] cf[p, n], a tree sum over
+                # [Tc, deg, Pc, N] products, Tc dates at a time
+                t_chunk = self._date_chunk(deg * cf_c.shape[0] * expl.shape[1])
+                per_t = []
+                for lo in range(0, len(t_grid), t_chunk):
+                    w = self._weighted_basis(numeraire, expl, s1, lo, lo + t_chunk, deg)
+                    per_t.append(fixed_tree_sum(w[:, :, None, :] * cf_c[None, None], -1))
+                blocks.append(torch.cat(per_t))                            # [T, deg, Pc]
+            rhs = sum_over_ranks(torch.cat(blocks, dim=-1), tables.sharding)  # [T, deg, Pa]
             mask = self._const(f"maturity_mask:{a}", lambda: (
                 maturities[p_rows][None, :] > t_grid[:, None]), tables.device)
             sol = _solve(gram, rhs * mask[:, None, :]) / col_scale[:, :, None]
@@ -908,7 +927,7 @@ class ExerciseEquityBatch(TerminalBatch):
 
     def _hypothetical_step(self, carry, spots_e, num_e, strike_e, signs, coeffs, itm_gate):
         """One backward event on the all-states carry C [P, N, S]."""
-        grid = self.regression_function.get_regression_matrix(spots_e) @ coeffs.mT  # [P, N, S]
+        grid = matmul_t(self.regression_function.get_regression_matrix(spots_e), coeffs)  # [P, N, S]
         immediate = self._immediate(signs, spots_e, strike_e)[:, :, None]        # [P, N, 1]
         s_positive = torch.arange(self.num_states, device=grid.device) > 0
         if self.is_flexi:
@@ -936,7 +955,8 @@ class ExerciseEquityBatch(TerminalBatch):
                 itm = (signs[:, None] * (spots_e - strike_e[:, None]) > 0.0).to(spots_e.dtype)
                 weights = torch.where((itm_gate & is_prod_e)[:, None], itm, 1.0)
             coeffs = fit_least_squares(self.regression_function.get_regression_matrix(spots_e),
-                                       num_e[:, :, None] * carry, weights=weights)
+                                       num_e[:, :, None] * carry, weights=weights,
+                                       sharding=tables.sharding)
             stepped = self._hypothetical_step(carry, spots_e, num_e, strike_e, signs, coeffs,
                                               itm_gate)
             carry = torch.where(is_prod_e[:, None, None], stepped, carry)
@@ -956,7 +976,8 @@ class ExerciseEquityBatch(TerminalBatch):
         exposures = []
         for e in range(spots.shape[0]):
             spots_e, num_e, strike_e = spots[e], numeraires[e], strikes[e]
-            grid = self.regression_function.get_regression_matrix(spots_e) @ self._coeffs[e].mT
+            grid = matmul_t(self.regression_function.get_regression_matrix(spots_e),
+                            self._coeffs[e])
             cont_hold = take(grid, state)
             immediate = self._immediate(signs, spots_e, strike_e)
             if self.is_flexi:
@@ -1101,16 +1122,17 @@ class CouponBatch(TerminalBatch):
         """Future-cashflow exposure regression on the internal exposure grid:
         descending over the grid, events enter the running [Pc, N]
         future-cashflow accumulator at the last grid date before their pay
-        date, and each date's right-hand side is one product of the weighted
-        basis [deg, N] with the accumulator."""
+        date, and a date's right-hand side is the tree sum of the weighted
+        basis [deg, N] times the accumulator, a chunk of dates in one tree
+        sum (the [Tc, deg, Pc, N] temp bounded by ``_date_chunk``)."""
         deg = ctx.regression_function.get_degree()
         t_grid = np.array(ctx.exposure_timeline)
         n = tables.num_paths
-        chunk = self._cashflow_chunk(n)
+        chunk = self._cashflow_chunk(n * deg)  # the [deg, Pc, N] products of a date
         self._exp_coeffs = {}
         for a, p_rows in self._by_asset().items():
             expl, numeraire = self._exposure_grid_obs(tables, ctx, a)
-            gram, col_scale, s1 = self._exposure_gram(expl, deg)
+            gram, col_scale, s1 = self._exposure_gram(expl, deg, tables.sharding)
             local = {int(g): i for i, g in enumerate(p_rows)}
             rhs_chunks = []
             for lo in range(0, len(p_rows), chunk):
@@ -1118,7 +1140,8 @@ class CouponBatch(TerminalBatch):
                 buckets = self._table(f"future:{a}:{lo}:{len(t_grid)}",
                                       lambda: self._future_event_buckets(t_grid, rows_c))
                 cf_future = torch.zeros((len(rows_c), n), dtype=real_dtype(), device=tables.device)
-                rhs_t = [None] * len(t_grid)
+                t_chunk = self._date_chunk(deg * len(rows_c) * n)
+                blocks, held = [], []  # held: the accumulator at t_hi - 1, t_hi - 2, ...
                 for t in range(len(t_grid) - 1, -1, -1):
                     if t in buckets:
                         ev_rows, ev_vals = self._event_rows(tables, *buckets[t],
@@ -1126,10 +1149,16 @@ class CouponBatch(TerminalBatch):
                         seg = self._const(f"future:{a}:{lo}:{t}:seg", lambda: np.array(
                             [local[int(r)] - lo for r in ev_rows]), tables.device, torch.long)
                         cf_future = _segment_sum(ev_vals, seg, len(rows_c), cf_future)
-                    w = self._weighted_basis(numeraire, expl, s1, t, t + 1, deg)[0]  # [deg, N]
-                    rhs_t[t] = w @ cf_future.T                                   # [deg, Pc]
-                rhs_chunks.append(torch.stack(rhs_t))
-            sol = _solve(gram, torch.cat(rhs_chunks, dim=-1)) / col_scale[:, :, None]
+                    held.append(cf_future)
+                    if len(held) == t_chunk or t == 0:
+                        # dates t .. t + Tc - 1 in one tree sum of [Tc, deg, Pc, N]
+                        w = self._weighted_basis(numeraire, expl, s1, t, t + len(held), deg)
+                        cf = torch.stack(held[::-1])                             # [Tc, Pc, N]
+                        blocks.append(fixed_tree_sum(w[:, :, None, :] * cf[:, None], -1))
+                        held = []
+                rhs_chunks.append(torch.cat(blocks[::-1]))                       # [T, deg, Pc]
+            rhs = sum_over_ranks(torch.cat(rhs_chunks, dim=-1), tables.sharding)
+            sol = _solve(gram, rhs) / col_scale[:, :, None]
             self._exp_coeffs[a] = sol.transpose(1, 2)                           # [T, Pa, deg]
 
 

@@ -81,17 +81,41 @@ JAX engine's own draws) forces the engine too.  ``bridge_source`` ((product
 id, barrier index, paths, intervals) -> uniforms) is its twin for the
 Brownian-bridge uniforms of barrier options (products/barrier_option.py).
 
+Path sharding (``path_sharding=``, controller.py:89, 169; parallel/mesh.py):
+each ``torch.distributed`` rank simulates and values its own share of the
+paths, global paths ``rank + world_size * i``, through every route (the
+engine, K1 and K2 at the rank's path offset and stride, ops/path_shard.py).
+Every path-axis reduction (the metrics, the fits, the batches' Gram matrices,
+PFE's order statistics) sums the ranks' fixed-tree partials in a fixed tree,
+so every rank returns the same results, and each metric value has the same
+bits on any number of ranks (standard errors within 1 ulp).  The ranks must
+be a power of two and divide both path counts (half of them under
+antithetic pairs); a sharding of one rank runs the same code.  The public
+path counts are the run's; the tensors of a rank hold num_paths / R paths,
+and the "auto" streaming budgets weigh a rank's share against its card.
+
 Sensitivities take the direction the JAX package takes (controller.py:
 1700-1705): forward mode when the parameter count P is at most the value
-count V, else reverse mode.
+count V, else reverse mode; ``grad_mode="fwd"`` or ``"rev"`` forces one.
 
   * Forward: ``torch.func.jvp`` under ``torch.func.vmap`` over chunks of
     ``grad_chunk_size`` parameter tangents (the counterpart of
     ``_chunked_jacfwd``); each chunk is one pass whose primal is the
     valuation.  The kernel run and the noise recovery sit outside the
     sweeps: each phase's frozen draws are computed once per run.
-  * Reverse: one recorded forward pass, then one batched backward over the
-    V metric values (``is_grads_batched``).
+  * Reverse: one recorded forward pass, then batched backwards over
+    ``grad_chunk_size`` of the V metric values at a time (the JAX package's
+    ``_chunked_jacrev``, controller.py:1461-1502): ``torch.autograd.grad``
+    with ``is_grads_batched`` on one process, and under a path sharding (of
+    any world size, one included) the functional form, ``torch.func.vjp``
+    with ``vmap`` over the cotangents, since the batched backward of
+    ``autograd.grad`` has no batching rule for a collective.  There rank 0
+    seeds the values' cotangents, the others zeros, so each rank's gradient
+    is its own paths' share (parallel/collectives.py), and the jacobian is
+    their sum over the ranks in a fixed tree.  One process keeps the plain
+    form: the functional one runs every op of the recorded pass through
+    ``torch.func``'s wrappers, and its walls on the host-bound books were
+    longer (PERF.md section 6).
 
 Gradients flow through the pre-simulation's regression coefficients, as in
 the JAX package.
@@ -147,11 +171,17 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
+from montecarlo_risk_engine_tpu_torch.ops.path_shard import (
+    sharded_kernel_paths,
+    sharded_kernel_paths_with_noise,
+)
 from montecarlo_risk_engine_tpu_torch.ops.paths_ad import (
     dense_timeline,
     emitted_noise_fns,
     recovered_noise_fns,
 )
+from montecarlo_risk_engine_tpu_torch.parallel.collectives import sum_over_ranks
+from montecarlo_risk_engine_tpu_torch.parallel.mesh import PathSharding, local_paths
 from montecarlo_risk_engine_tpu_torch.products.base import Product
 from montecarlo_risk_engine_tpu_torch.products.netting_set import NettingSet
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType, RequestPlan
@@ -197,6 +227,8 @@ class SimulationController:
         qmc_bridge: bool = False,
         metric_streaming: object = "auto",
         qmc_shift_source: Optional[Dict[int, object]] = None,
+        path_sharding: Optional[PathSharding] = None,
+        grad_mode: str = "auto",
     ):
         self.risk_metrics = risk_metrics
         netting_sets = list(netting_sets)
@@ -286,7 +318,19 @@ class SimulationController:
                 "runs: the path kernels materialise the state plane that streaming mode avoids "
                 "(differentiated runs compose via in-loop row emission)")
         self.use_kernel = use_kernel
+        if grad_mode not in ("auto", "fwd", "rev"):
+            raise ValueError("grad_mode must be 'auto', 'fwd' or 'rev'")
+        self.grad_mode = grad_mode
         self.device = resolve_device(device)
+        # Path sharding (controller.py:2095-2106): every rank's share of both
+        # path counts, and its tensors on the sharding's device.
+        self.path_sharding = path_sharding
+        if path_sharding is not None:
+            if path_sharding.device.type != self.device.type:
+                raise ValueError(f"path_sharding lives on {path_sharding.device}, the controller "
+                                 f"on {self.device}")
+            for n in (self.num_paths_mainsim, self.num_paths_presim):
+                path_sharding.local_count(n, self.antithetic)
         self.noise_source = dict(noise_source) if noise_source else None
         if self.noise_source is not None and sampler == "sobol":
             raise ValueError("noise_source replaces the pseudo-random draws; sampler='sobol' "
@@ -298,8 +342,10 @@ class SimulationController:
 
         for prod_id, prod in enumerate(self.products):
             prod.product_id = prod_id
-            if bridge_source is not None and hasattr(prod, "bridge_source"):
-                prod.bridge_source = bridge_source
+            if hasattr(prod, "bridge_source"):
+                prod.path_sharding = path_sharding
+                if bridge_source is not None:
+                    prod.bridge_source = bridge_source
 
         if differentiate:
             self.model.requires_grad()
@@ -491,7 +537,8 @@ class SimulationController:
         if mode == "auto":
             plane_rows = max(len(self.simulation_timeline) * self.model.state_dim, 1)
             emitted_rows = schedule.num_emitted_rows()
-            num_paths = max(self.num_paths_mainsim, self.num_paths_presim)
+            num_paths = max(self._local(self.num_paths_mainsim),
+                            self._local(self.num_paths_presim))
             plane_bytes = plane_rows * num_paths * (torch.finfo(real_dtype()).bits // 8)
             amp = 1.0
             if self.differentiate:
@@ -530,8 +577,8 @@ class SimulationController:
                 "qmc_bridge keeps a [T_sub, N, sim_dim] rotated plane and its Sobol normals "
                 "(%.2f GiB) through the path loop, so streaming memory does not scale as "
                 "O(request rows x paths) on this book",
-                self._qmc_bridge_resident_bytes(max(self.num_paths_mainsim,
-                                                    self.num_paths_presim)) / 2**30)
+                self._qmc_bridge_resident_bytes(max(self._local(self.num_paths_mainsim),
+                                                    self._local(self.num_paths_presim))) / 2**30)
 
     @staticmethod
     def _make_unique_names(base_names: List[str]) -> List[str]:
@@ -549,6 +596,10 @@ class SimulationController:
         only is not simulated)."""
         return len(self._analytic_ids) < len(self.products)
 
+    def _local(self, num_paths: int) -> int:
+        """This rank's share of ``num_paths`` (all of it without a sharding)."""
+        return local_paths(num_paths, self.path_sharding)[0]
+
     def _phases(self):
         """(phase, num_paths) of every simulation a run makes."""
         if not self._simulates():
@@ -560,26 +611,27 @@ class SimulationController:
 
     def _kernel_ad_fns(self, num_paths: int, phase: int, emit_schedule=None):
         """(forward_coarse, noise_fn, recon_fn) of the differentiated kernel
-        route for one phase (controller.py:1192-1257); with an
-        ``emit_schedule`` they return the schedule's rows (kernel-streaming
-        AD)."""
+        route for one phase (controller.py:1192-1257), on this rank's paths;
+        with an ``emit_schedule`` they return the schedule's rows
+        (kernel-streaming AD)."""
         dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
                                   self.num_steps)
-        scheme = self.simulation_scheme
+        scheme, n = self.simulation_scheme, self._local(num_paths)
         if self.model.kernel_ad_mode(scheme) == "emit":
             def noise_forward(p):
-                return self.model.kernel_paths_with_noise(
-                    p, scheme, dense, num_paths, seed=self.root_seed, phase=phase)
+                return sharded_kernel_paths_with_noise(
+                    self.model, p, scheme, dense, num_paths, self.root_seed, phase,
+                    self.path_sharding)
 
             return emitted_noise_fns(self.model, scheme, self.simulation_timeline,
-                                     num_paths, self.num_steps, noise_forward, emit_schedule)
+                                     n, self.num_steps, noise_forward, emit_schedule)
 
         def dense_forward(p):
-            return self.model.kernel_paths(p, scheme, dense, num_paths, 1,
-                                           seed=self.root_seed, phase=phase)
+            return sharded_kernel_paths(self.model, p, scheme, dense, num_paths, 1,
+                                        self.root_seed, phase, self.path_sharding)
 
         return recovered_noise_fns(self.model, scheme, self.simulation_timeline,
-                                   num_paths, self.num_steps, dense_forward, emit_schedule)
+                                   n, self.num_steps, dense_forward, emit_schedule)
 
     def _kernel_noise_of(self, params):
         """Frozen draws {phase: noise} of the differentiated kernel route: one
@@ -592,14 +644,15 @@ class SimulationController:
         return dict(root_seed=self.root_seed, noise_source=(self.noise_source or {}).get(phase),
                     antithetic=self.antithetic, sampler=self.sampler,
                     qmc_bridge=self.qmc_bridge, remat=self.remat_paths,
-                    qmc_shift=(self.qmc_shift_source or {}).get(phase), device=self.device)
+                    qmc_shift=(self.qmc_shift_source or {}).get(phase), device=self.device,
+                    path_sharding=self.path_sharding)
 
     def _simulate_and_resolve(self, params, num_paths: int, phase: int, kernel_noise=None):
-        """One simulation pass -> (resolved handle lists, the batches'
-        observable tables or None), from the [T, N, D] state plane or, with
-        an emission schedule, from the rows emitted in the path loop
-        (controller.py:1273-1340)."""
-        schedule = self._emission_schedule
+        """One simulation pass of ``num_paths`` paths -> (resolved handle
+        lists, the batches' observable tables or None) of this rank's share,
+        from the [T, N, D] state plane or, with an emission schedule, from the
+        rows emitted in the path loop (controller.py:1273-1340)."""
+        schedule, n = self._emission_schedule, self._local(num_paths)
         if schedule is not None:
             if self._kernel_active:
                 # Kernel-streaming AD (differentiated runs only): the
@@ -613,8 +666,8 @@ class SimulationController:
                     num_paths, self.num_steps, phase, emit_schedule=schedule,
                     collect_states=False, **self._engine_kw(phase))
             emissions = [e.to(real_dtype()) for e in emissions]
-            tables = (EmittedTables(self._plan, schedule, emissions, params, num_paths)
-                      if self._batches else None)
+            tables = (EmittedTables(self._plan, schedule, emissions, params, n,
+                                    self.path_sharding) if self._batches else None)
             return self._plan.resolve_from_emissions(schedule, emissions), tables
         if self._kernel_active:
             if self.differentiate:
@@ -622,15 +675,16 @@ class SimulationController:
                 noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
                 states = recon_fn(params, noise)
             else:
-                states = self.model.kernel_paths(
-                    params, self.simulation_scheme, self.simulation_timeline,
-                    num_paths, self.num_steps, seed=self.root_seed, phase=phase,
+                states = sharded_kernel_paths(
+                    self.model, params, self.simulation_scheme, self.simulation_timeline,
+                    num_paths, self.num_steps, self.root_seed, phase, self.path_sharding,
                 ).to(real_dtype())
         else:
             states = simulate_paths(
                 self.model, params, self.simulation_scheme, self.simulation_timeline,
                 num_paths, self.num_steps, phase, **self._engine_kw(phase))
-        tables = ObservableTables(self.model, params, states, num_paths) if self._batches else None
+        tables = (ObservableTables(self.model, params, states, n, self.path_sharding)
+                  if self._batches else None)
         return self._plan.resolve_requests(params, states), tables
 
     # -- LSM regression (controller.py:399-477) -------------------------------------
@@ -657,7 +711,7 @@ class SimulationController:
         product_timeline = product.product_timeline
         product_reg_timeline = product.regression_timeline
         num_states = product.get_num_states()
-        num_paths = self.num_paths_presim
+        num_paths = self._local(self.num_paths_presim)
         dtype = real_dtype()
         zero = torch.zeros((num_states, self.regression_function.get_degree()), dtype=dtype,
                            device=self.device)
@@ -704,7 +758,7 @@ class SimulationController:
                 torch.broadcast_to(explanatory, (num_paths,)))
             targets = torch.broadcast_to(numeraire_col * total_cfs, (num_paths, num_states))
             if t_reg in product_reg_timeline:
-                coeffs = fit_least_squares(basis, targets)
+                coeffs = fit_least_squares(basis, targets, sharding=self.path_sharding)
                 product.regression_coeffs[product_reg_timeline.index(t_reg)] = coeffs
                 if t_reg in self._exposure_time_to_idx:
                     exposure_coeffs[self._exposure_time_to_idx[t_reg]] = coeffs
@@ -716,7 +770,8 @@ class SimulationController:
         for start in range(0, len(pending), group):
             chunk = pending[start:start + group]
             coeffs = fit_least_squares(torch.stack([c[1] for c in chunk]),
-                                       torch.stack([c[2] for c in chunk]))
+                                       torch.stack([c[2] for c in chunk]),
+                                       sharding=self.path_sharding)
             for (exp_idx, _, _), c in zip(chunk, coeffs.unbind(0)):
                 exposure_coeffs[exp_idx] = c
         product.regression_coeffs = (torch.stack(product.regression_coeffs)
@@ -854,7 +909,8 @@ class SimulationController:
                 # exposure-only rows carry dummy underlying values: the
                 # all-path fit there (weights only shape exercise decisions)
                 weights = torch.where(is_prod[:, None], weights, torch.ones_like(weights))
-            coeffs = fit_least_squares(basis, num[..., None] * carry, weights=weights)
+            coeffs = fit_least_squares(basis, num[..., None] * carry, weights=weights,
+                                       sharding=self.path_sharding)
             next_state, cfs = self._scan_step(rep, state0, und, expl, num, strike, coeffs,
                                               extras_e)
             updated = cfs + rep.lookup_state_values(carry, next_state)
@@ -893,8 +949,9 @@ class SimulationController:
         """The bucket's fit on pre-simulation paths (controller.py:791-806):
         coeffs [P, E, S, deg]; each product's ``regression_coeffs`` are its
         own dates' rows."""
-        tables = self._exercise_event_tables(products, resolved, self.num_paths_presim)
-        coeffs = self._exercise_backward_scan(products, self.num_paths_presim, tables)
+        n = self._local(self.num_paths_presim)
+        tables = self._exercise_event_tables(products, resolved, n)
+        coeffs = self._exercise_backward_scan(products, n, tables)
         for i, product in enumerate(products):
             product.regression_coeffs = self._take_rows(coeffs[i], tables["prod_rows"][i])
         return coeffs
@@ -907,7 +964,7 @@ class SimulationController:
     def _evaluate_exercise_bucket(self, products: Sequence[Product], coeffs, resolved):
         """The bucket on main-simulation paths (controller.py:808-873):
         (cashflows [P, N], exposure profiles [P, T_exp, N] or None)."""
-        n = self.num_paths_mainsim
+        n = self._local(self.num_paths_mainsim)
         tables = self._exercise_event_tables(products, resolved, n)
         want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
         cfs, exposures, _ = self._exercise_forward_scan(products, n, coeffs, tables, want)
@@ -920,7 +977,8 @@ class SimulationController:
         """Realized states [len(product timeline), N] of one exercise product
         under its LSM policy (controller.py:677-723): the pre-simulation fit
         and the main-simulation forward scan of this product alone, on the
-        paths ``run_simulation`` draws (kernel route included)."""
+        paths ``run_simulation`` draws (kernel route included); this rank's
+        paths under a path sharding."""
         if not self._supports_exercise_scan(product):
             raise ValueError(f"{type(product).__name__} has no scan-executor path")
         if id(product) in self._batched_ids:
@@ -929,14 +987,15 @@ class SimulationController:
         self._ensure_plan()
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
         with torch.no_grad():
+            n_pre, n_main = self._local(self.num_paths_presim), self._local(self.num_paths_mainsim)
             pre, _ = self._simulate_and_resolve(params, self.num_paths_presim, rng.PHASE_PRESIM)
-            tables = self._exercise_event_tables([product], pre, self.num_paths_presim)
-            coeffs = self._exercise_backward_scan([product], self.num_paths_presim, tables)
+            tables = self._exercise_event_tables([product], pre, n_pre)
+            coeffs = self._exercise_backward_scan([product], n_pre, tables)
             del pre
             main, _ = self._simulate_and_resolve(params, self.num_paths_mainsim,
                                                  rng.PHASE_MAINSIM)
-            tables = self._exercise_event_tables([product], main, self.num_paths_mainsim)
-            _, _, states = self._exercise_forward_scan([product], self.num_paths_mainsim, coeffs,
+            tables = self._exercise_event_tables([product], main, n_main)
+            _, _, states = self._exercise_forward_scan([product], n_main, coeffs,
                                                        tables, False, want_states=True)
         return self._take_rows(states[0], tables["prod_rows"][0]).cpu().numpy()
 
@@ -945,7 +1004,7 @@ class SimulationController:
     def _evaluate_product(self, product: Product, params, resolved, exposure_coeffs):
         """The per-date unrolled path: (numeraire-deflated cashflows [N],
         exposure profiles [E, N] or None)."""
-        num_paths = self.num_paths_mainsim
+        num_paths = self._local(self.num_paths_mainsim)
         dtype = real_dtype()
         state_matrix = self._initial_state(product, (num_paths, 1))
         cfs = torch.zeros((num_paths,), dtype=dtype, device=self.device)
@@ -1020,14 +1079,14 @@ class SimulationController:
                     and metric.evaluation_type == EvaluationType.ANALYTICAL):
                 value = analytic[metric_idx]
                 if has_pathwise:
-                    numeric, err = mc_mean_and_error(cfs)
+                    numeric, err = mc_mean_and_error(cfs, self.path_sharding)
                 else:
                     numeric, err = torch.zeros_like(value), torch.zeros_like(value)
                 results.append([(value + numeric, err)])
                 continue
             results.append(metric.evaluate(exposures=exposure_list, cfs=cfs,
                                            resolved_requests=resolved, netting_set=netting_set,
-                                           model=self.model))
+                                           model=self.model, sharding=self.path_sharding))
         return results
 
     def _evaluate_batches(self, tables, cfs_acc, exp_acc):
@@ -1052,7 +1111,7 @@ class SimulationController:
             else:
                 if need_cfs:
                     cfs_acc = cfs_acc + batch.segmented_cashflows(tables, num_ns,
-                                                                  self.num_paths_mainsim)
+                                                                  tables.num_paths)
                 if need_exp:
                     exp_ns = batch.exposure_contributions(tables, ctx)
             if exp_ns is not None:
@@ -1067,7 +1126,7 @@ class SimulationController:
         (controller.py:1139-1144), the family batches, the exercise buckets
         reduced by one ``index_add`` each (controller.py:1084-1133), the
         other products one by one."""
-        num_ns, n = len(self.netting_sets), self.num_paths_mainsim
+        num_ns, n = len(self.netting_sets), self._local(self.num_paths_mainsim)
         cfs_acc = torch.zeros((num_ns, n), dtype=real_dtype(), device=self.device)
         exp_acc: List[Optional[torch.Tensor]] = [None] * num_ns
         zero = torch.zeros((), dtype=real_dtype(), device=self.device)
@@ -1186,9 +1245,10 @@ class SimulationController:
 
     def _resolve_grad_mode(self, params) -> None:
         """Forward mode when the parameter count is at most the value count,
-        else reverse (controller.py:1700-1705)."""
+        else reverse (controller.py:1700-1705), unless ``grad_mode`` says."""
         n_values = sum(n for ns in self._result_spec() for n in ns)
-        self._grad_mode_resolved = "fwd" if len(params) <= n_values else "rev"
+        self._grad_mode_resolved = (self.grad_mode if self.grad_mode != "auto" else
+                                    "fwd" if len(params) <= n_values else "rev")
 
     def _pair_fn(self, kernel_noise):
         """params -> (values [V], errors [V]) of one run on the frozen draws."""
@@ -1197,13 +1257,18 @@ class SimulationController:
     def _jacobian(self, params, kernel_noise=None):
         """(values [V], errors [V], jacobian [P, V]) of the differentiated run."""
         pair = self._pair_fn(kernel_noise)
+        if self._grad_mode_resolved == "rev" and self.path_sharding is not None:
+            values, errors, jac = self._jacrev(pair, params)
+            return values.detach(), errors.detach(), jac.detach()
         if self._grad_mode_resolved == "rev":
             params = tuple(p.detach().requires_grad_(True) for p in params)
             values, errors = pair(params)
-            cotangents = torch.eye(values.shape[0], dtype=values.dtype, device=values.device)
-            grads = torch.autograd.grad(values, params, grad_outputs=cotangents,
-                                        is_grads_batched=True)
-            return values.detach(), errors.detach(), torch.stack(grads)
+            n, chunk = values.shape[0], self.grad_chunk_size
+            eye = torch.eye(n, dtype=values.dtype, device=values.device)
+            rows = [torch.stack(torch.autograd.grad(
+                values, params, grad_outputs=eye[start:start + chunk], is_grads_batched=True,
+                retain_graph=start + chunk < n)) for start in range(0, n, chunk)]
+            return values.detach(), errors.detach(), torch.cat(rows, dim=1)
         return self._jacfwd(pair, params)
 
     def _jacfwd(self, pair, params):
@@ -1224,16 +1289,24 @@ class SimulationController:
             rows.append(rows_c)
         return values, errors, torch.cat(rows)
 
-    @staticmethod
-    def _jacrev(pair, params):
+    def _jacrev(self, pair, params):
         """Reverse mode as a functional gradient: ``torch.func.vjp`` of the
         values, ``vmap`` over the V unit cotangents, (values, errors, [P, V]).
-        Unlike ``torch.autograd.grad`` it composes with an outer
-        ``torch.func.jvp``: the Hessian rows of the reverse branch."""
+        Unlike ``torch.autograd.grad`` it composes with the collectives'
+        ``vmap`` rules and with an outer ``torch.func.jvp``: the first order
+        under a path sharding, and the Hessian rows of the reverse branch.
+        The cotangents go ``grad_chunk_size`` at a time.  Under a path
+        sharding rank 0 seeds them and the others zeros: each rank's rows
+        are its own paths' share, summed over the ranks."""
         values, vjp_fn, errors = vjp(pair, params, has_aux=True)
         cotangents = torch.eye(values.shape[0], dtype=values.dtype, device=values.device)
-        (grads,) = vmap(vjp_fn)(cotangents)
-        return values, errors, torch.stack(grads)
+        sharding = self.path_sharding
+        if sharding is not None and sharding.rank != 0:
+            cotangents = torch.zeros_like(cotangents)
+        chunk = self.grad_chunk_size
+        rows = [torch.stack(vmap(vjp_fn)(cotangents[start:start + chunk])[0])
+                for start in range(0, cotangents.shape[0], chunk)]
+        return values, errors, sum_over_ranks(torch.cat(rows, dim=1), sharding)
 
     def _hessian_row(self, jac_fn, params, j: int):
         """Row j of the Hessian, [P, V]: d jac[i] / d p_j for every i, the

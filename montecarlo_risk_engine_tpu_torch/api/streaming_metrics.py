@@ -19,6 +19,12 @@ after its substeps:
     and the pathwise CVA accumulator ``acc += E+(t_k) S(0, t_k) (1 - S(t_k,
     t_k+1))`` fed by the survival rows resolved at the same point.
 
+Under a path sharding (the controller's ``path_sharding``) the fold runs on
+this rank's paths and keeps per-rank partials: a date's mean is summed over
+the ranks at its point (its squared deviations need it there), its summed
+squared deviations and the CVA accumulators once per run, at the end; PFE's
+bisection counts across the ranks at each date.
+
 What stays resident is O(N): the state, the stash, one [n_ns, N] CVA
 accumulator per CVA metric, and per-date scalars.  The point index is a host
 integer, so the exposure-date test of the JAX fold (``lax.cond``) is a
@@ -45,8 +51,11 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
     MetricType,
     fixed_tree_sum,
     mc_mean_and_error,
+    sample_error,
 )
 from montecarlo_risk_engine_tpu_torch.ops.quantile import order_statistics_bisect
+from montecarlo_risk_engine_tpu_torch.parallel.collectives import sum_over_ranks
+from montecarlo_risk_engine_tpu_torch.parallel.mesh import local_paths
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequestType
 
 _STREAM_METRICS = {
@@ -135,7 +144,9 @@ class MetricStreamExecutor:
         self.t_exp = len(self.exposure_timeline)
         self.t_m = len(controller.metric_exposure_timeline)
         self.n_ns = len(controller.netting_sets)
-        self.num_paths = controller.num_paths_mainsim
+        self.sharding = controller.path_sharding
+        self.num_paths = local_paths(controller.num_paths_mainsim, self.sharding)[0]  # this rank's
+        self.n_global = controller.num_paths_mainsim
 
         time_to_point = {t: i for i, t in enumerate(controller.simulation_timeline)}
         exp_idx = np.full(self.n_points, -1, dtype=np.int64)   # point -> exposure index
@@ -229,7 +240,7 @@ class MetricStreamExecutor:
         for m in metrics:
             if m.metric_type != MetricType.PFE:
                 continue
-            n = self.num_paths
+            n = self.n_global
             q_index = int(math.ceil(m.quantile * n)) - 1
             if m.pfe_se == "order-statistic":
                 se_ks = m._bracket_indices(n)
@@ -319,17 +330,22 @@ class MetricStreamExecutor:
         is_coll = self._tab("is_coll", self.is_coll, torch.bool, netted.device)[:, None]
         unsec = torch.where(is_coll, netted - collat, self._apply_threshold(netted))
 
-        # (mean [n_ns], err [n_ns]) kept apart: in one tensor, reverse mode
-        # would pull the zero cotangent of a zero-variance date's error
-        # through sqrt'(0) = inf into the mean's inputs.
-        date_stats = lambda rows: mc_mean_and_error(rows.mT)
+        # (mean [n_ns], this rank's summed squared deviations [n_ns]): the
+        # errors follow once per run (_date_errors).  Kept apart: in one
+        # tensor, reverse mode would pull the zero cotangent of a
+        # zero-variance date's error through sqrt'(0) = inf into the mean's
+        # inputs.
+        def date_stats(rows):
+            mean = fixed_tree_sum(rows.mT, sharding=self.sharding) / self.n_global
+            return mean, fixed_tree_sum((rows.mT - mean) ** 2)
 
         if self.need_pos:
             aux["pos"][m_i] = date_stats(torch.clamp(unsec, min=0.0))
         if self.need_neg:
             aux["neg"][m_i] = date_stats(-torch.clamp(-unsec, min=0.0))
         for idx, (_, ks, _, _, _) in enumerate(self.pfe_metrics):
-            aux["pfe"][idx][m_i] = order_statistics_bisect(unsec, ks).mT  # [n_ns, K]
+            aux["pfe"][idx][m_i] = order_statistics_bisect(
+                unsec, ks, sharding=self.sharding).mT  # [n_ns, K]
         for c_idx, (_, match, surv_s, cond_s) in enumerate(self.cva_metrics):
             if surv_s[1][point_idx] < 0:
                 continue
@@ -362,9 +378,21 @@ class MetricStreamExecutor:
 
     # -- assembly ---------------------------------------------------------------
 
+    def _date_errors(self, aux) -> None:
+        """Each date's (mean, squared deviations) -> (mean, error), the
+        squared deviations of every date summed over the ranks at once."""
+        keys = [(kind, i) for kind in ("pos", "neg") for i in range(self.t_m)
+                if aux[kind][i] is not None]
+        if not keys:
+            return
+        sums = sum_over_ranks(torch.stack([aux[k][i][1] for k, i in keys]), self.sharding)
+        for (k, i), err in zip(keys, sample_error(sums, self.n_global).unbind(0)):
+            aux[k][i] = (aux[k][i][0], err)
+
     def assemble(self, aux):
         """Nested [ns][metric] -> [(value, err), ...] from the accumulators,
         each metric's own formulas and the CVA counterparty gate."""
+        self._date_errors(aux)
         c = self.c
         nested = []
         for ns_idx, ns in enumerate(c.netting_sets):
@@ -395,7 +423,7 @@ class MetricStreamExecutor:
                         if metric.pfe_se == "order-statistic":
                             err = (hi - lo) / 2.0
                         else:
-                            err = metric._quantile_se(lo, val, hi, self.num_paths, q_index)
+                            err = metric._quantile_se(lo, val, hi, self.n_global, q_index)
                         rows.append((val, err))
                     ns_results.append(rows)
                 elif mt == MetricType.CVA:
@@ -408,7 +436,8 @@ class MetricStreamExecutor:
                     acc = aux["cva"][c_idx]
                     pathwise = (torch.zeros((self.num_paths,), dtype=real_dtype(),
                                             device=c.device) if acc is None else acc[ns_idx])
-                    ns_results.append([mc_mean_and_error(pathwise * (1.0 - metric.recovery_rate))])
+                    ns_results.append([mc_mean_and_error(pathwise * (1.0 - metric.recovery_rate),
+                                                         self.sharding)])
                 else:  # guarded by metric_stream_ineligibility
                     raise AssertionError(f"unsupported metric {mt}")
             nested.append(ns_results)
@@ -440,5 +469,5 @@ class MetricStreamExecutor:
             antithetic=c.antithetic, sampler=c.sampler, qmc_bridge=c.qmc_bridge,
             remat=c.remat_paths, emit_schedule=self.schedule, collect_states=False,
             fold=(self._init_aux(), self.fold_update(self.gather_coeffs(fits))),
-            qmc_shift=qmc_shift, device=c.device)
+            qmc_shift=qmc_shift, device=c.device, path_sharding=self.sharding)
         return self.assemble(aux)

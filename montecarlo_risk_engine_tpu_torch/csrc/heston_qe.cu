@@ -24,7 +24,10 @@
 //     sigma, rate, rho, kappa, theta, v0] (the wrapper's torch.stack, rounded
 //     once from the caller's dtype), read once per thread.
 //   * Draws: Philox4x32-10, key (seed, phase), counter
-//     (path, point * num_steps + k, 0, 0).  Words 0 and 1 give
+//     (path, point * num_steps + k, 0, 0), path the global index
+//     path_offset + path_stride * i of the thread's row i (a rank of a
+//     path-sharded run draws its own paths and writes them as its own
+//     contiguous rows; (0, 1) is the whole run).  Words 0 and 1 give
 //     the Box-Muller pair (z_s, z_v), word 2 the QE uniform, each mapped as
 //     ((w >> 8) + 0.5) / 2^24 and clamped below 1 (random.cuh).
 //   * Built with -fmad=false and without fast math: every expression rounds
@@ -52,9 +55,10 @@ __global__ void __launch_bounds__(kThreads, kEmit ? 4 : 0)
 heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
                  float* __restrict__ us, const PointTable table, int num_points,
                  int num_steps, uint32_t num_paths, const float* __restrict__ prm,
-                 uint32_t seed, uint32_t phase) {
+                 uint32_t seed, uint32_t phase, uint32_t path_offset, uint32_t path_stride) {
   const uint32_t path = blockIdx.x * blockDim.x + threadIdx.x;
   if (path >= num_paths) return;
+  const uint32_t global_path = path_offset + path_stride * path;
   const uint2 key = make_uint2(seed, phase);
 
   const float sigma = __ldg(prm + 1), rate = __ldg(prm + 2), rho = __ldg(prm + 3);
@@ -70,7 +74,7 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
       float z_s = 0.0f, z_v = 0.0f, u = 0.0f;
       for (int k = 0; k < num_steps; ++k) {
         const uint4 w = mcre::philox4x32_10(
-            make_uint4(path, (uint32_t)(point * num_steps + k), 0u, 0u), key);
+            make_uint4(global_path, (uint32_t)(point * num_steps + k), 0u, 0u), key);
         const float2 zz = mcre::box_muller(w.x, w.y);
         u = mcre::uniform_from_word(w.z);
         z_s = zz.x;
@@ -92,12 +96,12 @@ heston_qe_kernel(float2* __restrict__ states, float2* __restrict__ zs,
 template <bool kSmooth, bool kEmit>
 void launch(float2* states, float2* zs, float* us, const PointTable& table,
             int num_points, int num_steps, uint32_t num_paths,
-            const float* prm, uint32_t seed, uint32_t phase,
-            cudaStream_t stream) {
+            const float* prm, uint32_t seed, uint32_t phase, uint32_t path_offset,
+            uint32_t path_stride, cudaStream_t stream) {
   const unsigned blocks = (num_paths + kThreads - 1) / kThreads;
   heston_qe_kernel<kSmooth, kEmit><<<blocks, kThreads, 0, stream>>>(
       states, zs, us, table, num_points, num_steps, num_paths, prm, seed,
-      phase);
+      phase, path_offset, path_stride);
 }
 
 }  // namespace
@@ -105,14 +109,18 @@ void launch(float2* states, float2* zs, float* us, const PointTable& table,
 // Returns the cudaError_t of the launch (0 on success).  states, z, u and
 // params are device pointers; z and u may be null unless emit_noise is set;
 // params is f32 [7] (spot, sigma, rate, rho, kappa, theta, v0).  dts is a
-// host array of num_points floats (the per-substep dt of each point).
+// host array of num_points floats (the per-substep dt of each point).  Row
+// i draws global path path_offset + path_stride * i, which must stay below
+// 2^32.
 extern "C" int mcre_heston_qe_paths(void* states, void* z, void* u,
                                     const void* dts, int num_points,
                                     int num_steps, uint32_t num_paths,
                                     const void* params, uint32_t seed,
-                                    uint32_t phase, int smoothing,
+                                    uint32_t phase, uint32_t path_offset,
+                                    uint32_t path_stride, int smoothing,
                                     int emit_noise, void* stream) {
   if (!mcre::valid_paths_launch(num_points, num_steps, num_paths, states, params) ||
+      !mcre::valid_path_stride(num_paths, path_offset, path_stride) ||
       (emit_noise && (z == nullptr || u == nullptr || num_steps != 1))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -125,15 +133,19 @@ extern "C" int mcre_heston_qe_paths(void* states, void* z, void* u,
   auto st = static_cast<cudaStream_t>(stream);
   if (smoothing) {
     if (emit_noise) {
-      launch<true, true>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase, st);
+      launch<true, true>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase,
+                        path_offset, path_stride, st);
     } else {
-      launch<true, false>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase, st);
+      launch<true, false>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase,
+                        path_offset, path_stride, st);
     }
   } else {
     if (emit_noise) {
-      launch<false, true>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase, st);
+      launch<false, true>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase,
+                        path_offset, path_stride, st);
     } else {
-      launch<false, false>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase, st);
+      launch<false, false>(s, zz, uu, table, num_points, num_steps, num_paths, prm, seed, phase,
+                        path_offset, path_stride, st);
     }
   }
   return (int)cudaGetLastError();

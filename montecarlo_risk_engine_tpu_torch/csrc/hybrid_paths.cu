@@ -278,10 +278,11 @@ __global__ void __launch_bounds__(kThreads, 4)
 hybrid_kernel(float* __restrict__ out, const float* __restrict__ prm,
               const float* __restrict__ table, const float* __restrict__ init, const Desc d,
               int num_points, int num_steps, uint32_t num_paths, uint32_t seed,
-              uint32_t phase) {
+              uint32_t phase, uint32_t path_offset, uint32_t path_stride) {
   extern __shared__ __align__(128) float tiles[];  // [2][kThreads * state_dim]
   const uint32_t first = blockIdx.x * kThreads;
   const uint32_t path = first + threadIdx.x;  // may pass num_paths in the last block
+  const uint32_t global_path = path_offset + path_stride * path;  // the Philox counter's
   const uint32_t rows = min(num_paths - first, (uint32_t)kThreads);
   const bool bulk = kBulk && rows == (uint32_t)kThreads;  // uniform in the block
   const int dim = d.state_dim;
@@ -318,7 +319,8 @@ hybrid_kernel(float* __restrict__ out, const float* __restrict__ prm,
         float z[S];
 #pragma unroll
         for (int c = 0; c < S / 4; ++c) {
-          const uint4 w4 = mcre::philox4x32_10(make_uint4(path, counter, (uint32_t)c, 0u), key);
+          const uint4 w4 = mcre::philox4x32_10(make_uint4(global_path, counter, (uint32_t)c, 0u),
+                                                 key);
           const float2 p0 = mcre::box_muller(w4.x, w4.y);
           const float2 p1 = mcre::box_muller(w4.z, w4.w);
           z[4 * c] = p0.x;
@@ -440,11 +442,12 @@ hybrid_kernel(float* __restrict__ out, const float* __restrict__ prm,
 template <bool kBulk>
 int launch(float* out, const float* prm, const float* table, const float* init, const Desc& d,
            int num_points, int num_steps, uint32_t num_paths, uint32_t seed, uint32_t phase,
-           cudaStream_t stream) {
+           uint32_t path_offset, uint32_t path_stride, cudaStream_t stream) {
   const unsigned blocks = (num_paths + kThreads - 1) / kThreads;
   const size_t smem = 2 * kThreads * d.state_dim * sizeof(float);  // <= 32 KB
   hybrid_kernel<kBulk><<<blocks, kThreads, smem, stream>>>(
-      out, prm, table, init, d, num_points, num_steps, num_paths, seed, phase);
+      out, prm, table, init, d, num_points, num_steps, num_paths, seed, phase, path_offset,
+      path_stride);
   return (int)cudaGetLastError();
 }
 
@@ -513,15 +516,18 @@ extern "C" int mcre_hybrid_table(void* workspace, const void* host, const void* 
 // params, table and init are device pointers: out [num_points, num_paths,
 // state_dim] f32, params [P] f32, table [num_points * num_steps,
 // table_width] f32, init [state_dim] f32.  The slot arrays (length
-// num_slots) and chol (num_slots^2, row-major) are host arrays.
+// num_slots) and chol (num_slots^2, row-major) are host arrays.  Row i of
+// out draws global path path_offset + path_stride * i (below 2^32): a rank
+// of a path-sharded run writes its own paths as its own contiguous plane.
 extern "C" int mcre_hybrid_paths(void* out, const void* params, const void* table,
                                  const void* init, int num_slots, const int* role,
                                  const int* pa, const int* pb, const int* tcol, const int* oa,
                                  const int* ob, const float* chol, int state_dim,
                                  int table_width, int num_points, int num_steps,
                                  uint32_t num_paths, uint32_t seed, uint32_t phase,
-                                 void* stream) {
+                                 uint32_t path_offset, uint32_t path_stride, void* stream) {
   if (num_slots != kNs || num_points < 0 || num_steps < 1 || num_paths == 0 ||
+      !mcre::valid_path_stride(num_paths, path_offset, path_stride) ||
       out == nullptr || params == nullptr || table == nullptr || init == nullptr ||
       table_width < 2 || state_dim < 1 || state_dim > kMaxState) {
     return (int)cudaErrorInvalidValue;
@@ -553,6 +559,8 @@ extern "C" int mcre_hybrid_paths(void* out, const void* params, const void* tabl
   // point * num_paths * state_dim floats from out.
   const bool bulk = reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                     ((uint64_t)num_paths * state_dim) % 4 == 0;
-  return bulk ? launch<true>(o, p, t, i0, d, num_points, num_steps, num_paths, seed, phase, st)
-              : launch<false>(o, p, t, i0, d, num_points, num_steps, num_paths, seed, phase, st);
+  return bulk ? launch<true>(o, p, t, i0, d, num_points, num_steps, num_paths, seed, phase,
+                             path_offset, path_stride, st)
+              : launch<false>(o, p, t, i0, d, num_points, num_steps, num_paths, seed, phase,
+                              path_offset, path_stride, st);
 }

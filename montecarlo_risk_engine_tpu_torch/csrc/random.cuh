@@ -47,4 +47,12 @@ __device__ __forceinline__ float2 box_muller(uint32_t wa, uint32_t wb) {
   return make_float2(r * c, r * s);
 }
 
+// A launch's rows 0 .. num_paths - 1 draw global paths path_offset +
+// path_stride * i (a rank of a path-sharded run): a positive stride, and the
+// last of them a 32-bit counter word.
+inline bool valid_path_stride(uint32_t num_paths, uint32_t path_offset, uint32_t path_stride) {
+  return path_stride >= 1 &&
+         (uint64_t)path_offset + (uint64_t)path_stride * (num_paths - 1) < (1ull << 32);
+}
+
 }  // namespace mcre

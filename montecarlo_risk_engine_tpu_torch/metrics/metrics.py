@@ -10,7 +10,12 @@ plain time average of EE (quirk Q6) unless ``effective``; CVA accumulates
 means reduce by :func:`fixed_tree_sum`, a pairwise-halving sum in a fixed
 order (metrics.py:53-112), so the plane pipeline and the streaming metric
 pipeline (api/streaming_metrics.py) reduce the same numbers in the same
-order, and a reduction split over ranks can keep it.
+order.  Every path-axis reduction takes the run's ``sharding``
+(parallel/mesh.PathSharding or None): a rank reduces its own paths, and
+:func:`fixed_tree_sum` adds the ranks' partials in a fixed tree, so a metric
+value has the same bits on any number of ranks (mesh.py says why the cyclic
+layout makes that so); PFE's order statistics count and select across the
+ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from montecarlo_risk_engine_tpu_torch.parallel.collectives import gather, sum_over_ranks
 from montecarlo_risk_engine_tpu_torch.requests import AtomicRequest, AtomicRequestType
 
 
@@ -40,38 +46,97 @@ class EvaluationType(enum.Enum):
     NUMERICAL = "Numerical"
 
 
-def fixed_tree_sum(values: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def fixed_tree_sum(values: torch.Tensor, dim: int = 0, sharding=None) -> torch.Tensor:
     """Sum over ``dim`` in a fixed pairwise-halving order (JAX metrics.py:
     53-98): pad to a power of two with zeros, then add the upper half onto
     the lower half until one row is left.  Each output element is the same
     sequence of float adds whatever device or library reduction schedule
-    would have been picked."""
+    would have been picked.  With a ``sharding``, ``dim`` is this rank's
+    share of a path axis: its tree sum, then the tree sum of the ranks'
+    partials (parallel/collectives.sum_over_ranks), the bits of the sum on
+    one rank."""
+    return sum_over_ranks(_tree_sum(values, dim), sharding)
+
+
+def global_count(local: int, sharding) -> int:
+    """The run's path count from this rank's."""
+    return local if sharding is None else local * sharding.world_size
+
+
+def sample_error(sum_sq: torch.Tensor, n: int) -> torch.Tensor:
+    """unbiased std / sqrt(n) from the summed squared deviations."""
+    if n > 1:
+        return torch.sqrt(sum_sq / (n - 1)) / n ** 0.5
+    return torch.zeros_like(sum_sq)
+
+
+def _tree_sum(values: torch.Tensor, dim: int) -> torch.Tensor:
     dim = dim % max(values.dim(), 1)
     n = values.shape[dim] if values.dim() else 0
     if n == 0:
         shape = values.shape[:dim] + values.shape[dim + 1:]
         return torch.zeros(shape, dtype=values.dtype, device=values.device)
+    if torch.is_grad_enabled() and values.requires_grad:
+        return _TreeSum.apply(values, dim)
+    return _halvings(values, dim)
+
+
+def _halvings(values: torch.Tensor, dim: int) -> torch.Tensor:
+    n = values.shape[dim]
     p = 1 << (n - 1).bit_length()
-    if p != n:
-        pad_shape = list(values.shape)
-        pad_shape[dim] = p - n
-        values = torch.cat([values, values.new_zeros(pad_shape)], dim=dim)
+    if p != n:  # +0.0 rows at the end of ``dim``
+        values = torch.nn.functional.pad(values, (0, 0) * (values.dim() - 1 - dim) + (0, p - n))
     while values.shape[dim] > 1:
-        half = values.shape[dim] // 2
-        values = values.narrow(dim, 0, half) + values.narrow(dim, half, half)
+        low, high = values.split(values.shape[dim] // 2, dim)
+        values = low + high
     return values.select(dim, 0)
 
 
-def mc_mean_and_error(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class _TreeSum(torch.autograd.Function):
+    """The halvings with the derivatives of a sum, for a pass recorded for
+    reverse mode: the backward broadcasts the cotangent in one op, where the
+    recorded halvings take two a level (d sum / d x_i is 1 in any order, so
+    the gradient has the same bits); the forward derivative is the halvings
+    of the tangent, as without the Function."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(values, dim):
+        return _halvings(values, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        values, ctx.dim = inputs
+        ctx.shape = values.shape
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.unsqueeze(ctx.dim).expand(ctx.shape), None
+
+    @staticmethod
+    def jvp(ctx, values_t, _):
+        return _halvings(values_t, ctx.dim)
+
+
+def mc_mean_and_error(values: torch.Tensor, sharding=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, unbiased-std / sqrt(N)) over a pathwise vector (metric.py:26-35),
-    both moments through :func:`fixed_tree_sum`."""
-    n = values.shape[0]
-    mean = fixed_tree_sum(values) / n
+    both moments through :func:`fixed_tree_sum` (over every rank's paths
+    with a ``sharding``)."""
+    n = global_count(values.shape[0], sharding)
+    mean = fixed_tree_sum(values, sharding=sharding) / n
     if n > 1:
-        sigma = torch.sqrt(fixed_tree_sum((values - mean) ** 2) / (n - 1))
-    else:
-        sigma = torch.zeros_like(mean)
-    return mean, sigma / n ** 0.5
+        return mean, sample_error(fixed_tree_sum((values - mean) ** 2, sharding=sharding), n)
+    return mean, torch.zeros_like(mean)
+
+
+def _per_date(exposures, transform, sharding):
+    """[(mean, error)] of ``transform`` of each date's pathwise exposures:
+    one reduction of the [N, T] stack, each date's the bits of its own."""
+    if not exposures:
+        return []
+    mean, err = mc_mean_and_error(transform(torch.stack(exposures, dim=-1)), sharding)
+    return list(zip(mean.unbind(0), err.unbind(0)))
 
 
 class Metric:
@@ -115,8 +180,8 @@ class PVMetric(Metric):
         pv = torch.squeeze(product.compute_pv_analytically(model, params))
         return [(pv, torch.zeros_like(pv))]
 
-    def evaluate_numerically(self, cfs=None, **kwargs):
-        return [mc_mean_and_error(cfs)]
+    def evaluate_numerically(self, cfs=None, sharding=None, **kwargs):
+        return [mc_mean_and_error(cfs, sharding)]
 
 
 class CEMetric(Metric):
@@ -125,24 +190,24 @@ class CEMetric(Metric):
     def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
         super().__init__(MetricType.CE, evaluation_type)
 
-    def evaluate_numerically(self, exposures=None, **kwargs):
-        return [mc_mean_and_error(torch.clamp(exposures[0], min=0.0))]
+    def evaluate_numerically(self, exposures=None, sharding=None, **kwargs):
+        return [mc_mean_and_error(torch.clamp(exposures[0], min=0.0), sharding)]
 
 
 class EPEMetric(Metric):
     def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
         super().__init__(MetricType.EPE, evaluation_type)
 
-    def evaluate_numerically(self, exposures=None, **kwargs):
-        return [mc_mean_and_error(torch.clamp(e, min=0.0)) for e in exposures]
+    def evaluate_numerically(self, exposures=None, sharding=None, **kwargs):
+        return _per_date(exposures, lambda e: torch.clamp(e, min=0.0), sharding)
 
 
 class ENEMetric(Metric):
     def __init__(self, evaluation_type: EvaluationType = EvaluationType.NUMERICAL):
         super().__init__(MetricType.ENE, evaluation_type)
 
-    def evaluate_numerically(self, exposures=None, **kwargs):
-        return [mc_mean_and_error(-torch.clamp(-e, min=0.0)) for e in exposures]
+    def evaluate_numerically(self, exposures=None, sharding=None, **kwargs):
+        return _per_date(exposures, lambda e: -torch.clamp(-e, min=0.0), sharding)
 
 
 class EEPEMetric(Metric):
@@ -157,9 +222,10 @@ class EEPEMetric(Metric):
     def get_name(self) -> str:
         return "eepe[effective]" if self.effective else "eepe"
 
-    def evaluate_numerically(self, exposures=None, **kwargs):
-        per_date_ee = torch.stack([fixed_tree_sum(torch.clamp(e, min=0.0)) / e.shape[0]
-                                   for e in exposures])
+    def evaluate_numerically(self, exposures=None, sharding=None, **kwargs):
+        n = global_count(exposures[0].shape[0], sharding)
+        per_date_ee = fixed_tree_sum(torch.clamp(torch.stack(exposures, dim=-1), min=0.0),
+                                     sharding=sharding) / n
         if self.effective:
             per_date_ee = torch.cummax(per_date_ee, dim=0).values
         return [mc_mean_and_error(per_date_ee)]
@@ -207,10 +273,10 @@ class PFEMetric(Metric):
         k_hi = min(max(int(math.ceil(m + half)) - 1, 0), n - 1)
         return k_lo, k_hi
 
-    def evaluate_numerically(self, exposures=None, **kwargs):
+    def evaluate_numerically(self, exposures=None, sharding=None, **kwargs):
         if len(exposures) == 0:
             return []
-        n = exposures[0].shape[0]
+        n = global_count(exposures[0].shape[0], sharding)
         q_index = int(math.ceil(self.quantile * n)) - 1
         if self.pfe_se == "order-statistic":
             se_ks = self._bracket_indices(n)
@@ -221,8 +287,10 @@ class PFEMetric(Metric):
         if n > self.bisect_threshold:
             from montecarlo_risk_engine_tpu_torch.ops.quantile import order_statistics_bisect
 
-            stats = order_statistics_bisect(stacked, ks)  # [K, T]
+            stats = order_statistics_bisect(stacked, ks, sharding=sharding)  # [K, T]
         else:
+            if sharding is not None:  # every rank's values: [T, R, N / R] -> [T, N]
+                stacked = gather(stacked, sharding).transpose(0, 1).reshape(len(exposures), n)
             sorted_vals = torch.sort(stacked, dim=-1).values
             stats = sorted_vals[:, ks].mT  # [K, T]
         lo, pfe, hi = (stats[ks.index(k)] for k in (se_ks[0], q_index, se_ks[1]))
@@ -267,7 +335,8 @@ class CVAMetric(Metric):
             requests[label].append(req)
         return requests
 
-    def evaluate_numerically(self, exposures=None, resolved_requests=None, **kwargs):
+    def evaluate_numerically(self, exposures=None, resolved_requests=None, sharding=None,
+                             **kwargs):
         n_dates = len(exposures)
         survival = [resolved_requests[0][r.handle] for r in self.survival_prob_requests.values()]
         cond_survival = [resolved_requests[0][r.handle]
@@ -278,7 +347,7 @@ class CVAMetric(Metric):
         for k in range(n_dates - 1):
             default_prob = survival[k] * (1.0 - cond_survival[k])
             cva_pathwise = cva_pathwise + torch.clamp(exposures[k], min=0.0) * default_prob
-        return [mc_mean_and_error(cva_pathwise * (1.0 - self.recovery_rate))]
+        return [mc_mean_and_error(cva_pathwise * (1.0 - self.recovery_rate), sharding)]
 
 
 class PathwisePrimitive(enum.Enum):

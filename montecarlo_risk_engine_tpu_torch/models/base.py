@@ -153,18 +153,22 @@ class Model:
         return np.eye(self.simulation_dim)
 
     def kernel_paths(self, params, scheme, timeline, num_paths: int,
-                     num_steps: int, seed: int, phase: int = 0):
+                     num_steps: int, seed: int, phase: int = 0, path_offset: int = 0,
+                     path_stride: int = 1):
         """States at each timeline point, [T, num_paths, state_dim] f32:
-        the model as the one block of K2."""
+        the model as the one block of K2.  Row i is global path
+        ``path_offset + path_stride * i`` (ops/path_shard.py)."""
         if not self.supports_kernel_paths(scheme):
             raise ValueError(f"{type(self).__name__} has no path kernel under {scheme.name}")
         return hybrid_paths([self.kernel_block(scheme)],
                             np.linalg.cholesky(self.kernel_correlation()), params, timeline,
                             num_paths, num_steps, seed=seed, phase=phase,
-                            calibration_date=self.calibration_date)
+                            calibration_date=self.calibration_date, path_offset=path_offset,
+                            path_stride=path_stride)
 
     def kernel_paths_with_noise(self, params, scheme, timeline, num_paths: int,
-                                seed: int, phase: int = 0):
+                                seed: int, phase: int = 0, path_offset: int = 0,
+                                path_stride: int = 1):
         """Noise-emitting kernel forward for the emitted-noise AD path:
         states [T, N, D], raw normals [T, N, sim_dim], uniforms [T, N] at a
         substep-dense timeline (one substep per point)."""

@@ -99,7 +99,7 @@ class HestonModel(Model):
             )
 
     def kernel_paths(self, params, scheme, timeline, num_paths, num_steps,
-                     seed, phase=0):
+                     seed, phase=0, path_offset=0, path_stride=1):
         """QE trajectory via ops/heston_qe.heston_qe_paths; [T, N, 2] f32."""
         from montecarlo_risk_engine_tpu_torch.ops.heston_qe import heston_qe_paths
 
@@ -107,11 +107,12 @@ class HestonModel(Model):
         return heston_qe_paths(
             params, timeline, num_paths, num_steps, seed=seed, phase=phase,
             calibration_date=self.calibration_date,
-            smoothing=self.perform_smoothing,
+            smoothing=self.perform_smoothing, path_offset=path_offset,
+            path_stride=path_stride,
         )
 
     def kernel_paths_with_noise(self, params, scheme, timeline, num_paths,
-                                seed, phase=0):
+                                seed, phase=0, path_offset=0, path_stride=1):
         """(states [T, N, 2], z [T, N, 2], u [T, N]) f32 at a substep-dense
         timeline, for the emitted-noise AD path (ops/paths_ad.py)."""
         from montecarlo_risk_engine_tpu_torch.ops.heston_qe import heston_qe_paths
@@ -121,6 +122,7 @@ class HestonModel(Model):
             params, timeline, num_paths, 1, seed=seed, phase=phase,
             calibration_date=self.calibration_date,
             smoothing=self.perform_smoothing, emit_noise=True,
+            path_offset=path_offset, path_stride=path_stride,
         )
 
     # -- steps --------------------------------------------------------------

@@ -216,7 +216,8 @@ class ModelConfig(Model):
         return (scheme == SimulationScheme.EULER and self.simulation_dim <= MAX_SIM
                 and self.kernel_blocks() is not None)
 
-    def kernel_paths(self, params, scheme, timeline, num_paths, num_steps, seed, phase=0):
+    def kernel_paths(self, params, scheme, timeline, num_paths, num_steps, seed, phase=0,
+                     path_offset=0, path_stride=1):
         """Joint trajectory from the hybrid path kernel: [T, N, D] f32 in
         block order."""
         if not self.supports_kernel_paths(scheme):
@@ -225,7 +226,8 @@ class ModelConfig(Model):
         return hybrid_paths(
             self.kernel_blocks(), np.linalg.cholesky(self.static_joint_correlation()),
             params, timeline, num_paths, num_steps, seed=seed, phase=phase,
-            calibration_date=self.calibration_date,
+            calibration_date=self.calibration_date, path_offset=path_offset,
+            path_stride=path_stride,
         )
 
     # -- stepping -----------------------------------------------------------

@@ -20,8 +20,12 @@ Kernel (``csrc/heston_qe.cu``, CUDA C++ for sm_90a, built by ops/cuda_build):
     ``_heston_qe_substep``), and 256-thread blocks over 1M paths keep every
     SM busy without shared memory.
   * Draws: Philox4x32-10 keyed (seed, phase) at counter (path, point *
-    num_steps + k, 0, 0), the stream of ``rng.substep_draws``.  A sharded
-    run will pass a global path offset (not needed on one card yet).
+    num_steps + k, 0, 0), the stream of ``rng.substep_draws``.  Row i of
+    the output draws global path ``path_offset + path_stride * i``: a rank
+    of a path-sharded run (parallel/mesh.py, ops/path_shard.py) launches
+    at (rank, world size) and writes its own paths as its own contiguous
+    [T, N / R, 2] plane; the defaults (0, 1) are the whole run.  One
+    integer multiply-add per thread, outside the substep loop.
   * No host sync: the parameters go to the kernel as a device float32
     vector (:func:`kernel_inputs`), the per-point dts as a host array passed
     by value; nothing is read back before the launch.
@@ -114,7 +118,8 @@ def _point_dts(timeline: Sequence[float], calibration_date: float, num_steps: in
     return dts
 
 
-def _check_args(params, timeline, num_paths, num_steps, emit_noise):
+def _check_args(params, timeline, num_paths, num_steps, emit_noise, path_offset=0,
+                path_stride=1):
     if len(params) != 7:
         raise ValueError("heston_qe_paths expects the 7 Heston parameters")
     if emit_noise and num_steps != 1:
@@ -123,6 +128,7 @@ def _check_args(params, timeline, num_paths, num_steps, emit_noise):
         raise ValueError(f"bad num_steps={num_steps} / num_paths={num_paths}")
     if len(timeline) > MAX_POINTS:
         raise ValueError(f"at most {MAX_POINTS} timeline points, got {len(timeline)}")
+    rng.check_path_stride(num_paths, path_offset, path_stride)
 
 
 def heston_qe_paths_reference(
@@ -136,13 +142,16 @@ def heston_qe_paths_reference(
     smoothing: bool = False,
     emit_noise: bool = False,
     dtype: torch.dtype = torch.float32,
+    path_offset: int = 0,
+    path_stride: int = 1,
 ):
     """Plain PyTorch version of the kernel, on the device of ``params``.
 
     Same Philox words, same Box-Muller, same step algebra.  Returns
     states [T, N, 2]; with ``emit_noise`` also z [T, N, 2] and u [T, N]
-    (zeros at zero-dt points)."""
-    _check_args(params, timeline, num_paths, num_steps, emit_noise)
+    (zeros at zero-dt points).  Row i is global path ``path_offset +
+    path_stride * i``."""
+    _check_args(params, timeline, num_paths, num_steps, emit_noise, path_offset, path_stride)
     spot, sigma, rate, rho, kappa, theta, v0 = (p.detach().to(dtype) for p in params)
     device = spot.device
     log_s = torch.log(spot).expand(num_paths)
@@ -152,7 +161,8 @@ def heston_qe_paths_reference(
         if dt > 0.0:
             for k in range(num_steps):
                 z_s, z_v, u = rng.substep_draws(
-                    seed, phase, point * num_steps + k, num_paths, dtype, device)
+                    seed, phase, point * num_steps + k, num_paths, dtype, device,
+                    path_offset, path_stride)
                 log_s, v = heston_qe_substep(
                     log_s, v, z_s, z_v, u, dt, sigma, rate, rho, kappa, theta,
                     smoothing=smoothing,
@@ -180,6 +190,7 @@ def _bind(lib: ctypes.CDLL):
         ctypes.c_uint32,                                     # num_paths
         ctypes.c_void_p,                                     # params [7] f32
         ctypes.c_uint32, ctypes.c_uint32,                    # seed, phase
+        ctypes.c_uint32, ctypes.c_uint32,                    # path offset, stride
         ctypes.c_int, ctypes.c_int,                          # smoothing, emit
         ctypes.c_void_p,                                     # stream
     ]
@@ -199,7 +210,7 @@ def kernel_inputs(params, timeline: Sequence[float], num_steps: int,
 
 
 def _launch(params, timeline, num_paths, num_steps, seed, phase, calibration_date,
-            smoothing, emit_noise):
+            smoothing, emit_noise, path_offset=0, path_stride=1):
     built = cuda_build.load_library("heston_qe")
     fn = _bind(built.lib)
     device = params[0].device
@@ -218,7 +229,7 @@ def _launch(params, timeline, num_paths, num_steps, seed, phase, calibration_dat
                 None if u is None else u.data_ptr(),
                 ctypes.cast(table, ctypes.c_void_p), n_pts, num_steps, num_paths,
                 prm.data_ptr(),
-                seed & 0xFFFFFFFF, phase & 0xFFFFFFFF,
+                seed & 0xFFFFFFFF, phase & 0xFFFFFFFF, path_offset, path_stride,
                 int(smoothing), int(emit_noise),
                 torch.cuda.current_stream(device).cuda_stream,
             )
@@ -240,25 +251,27 @@ def heston_qe_paths(
     calibration_date: float = 0.0,
     smoothing: bool = False,
     emit_noise: bool = False,
+    path_offset: int = 0,
+    path_stride: int = 1,
 ):
     """Heston QE states at timeline points: [T, N, 2] float32 (log S, v).
 
     ``emit_noise=True`` (requires ``num_steps == 1``, the AD path's
     substep-dense timeline) also returns the draws z [T, N, 2] and u [T, N].
-    CUDA ``params`` launch the kernel; CPU ``params`` run
-    :func:`heston_qe_paths_reference`."""
-    _check_args(params, timeline, num_paths, num_steps, emit_noise)
+    Row i is global path ``path_offset + path_stride * i``.  CUDA ``params``
+    launch the kernel; CPU ``params`` run :func:`heston_qe_paths_reference`."""
+    _check_args(params, timeline, num_paths, num_steps, emit_noise, path_offset, path_stride)
     device = params[0].device
     if device.type == "cpu":
         return heston_qe_paths_reference(
             params, timeline, num_paths, num_steps, seed=seed, phase=phase,
             calibration_date=calibration_date, smoothing=smoothing,
-            emit_noise=emit_noise,
+            emit_noise=emit_noise, path_offset=path_offset, path_stride=path_stride,
         )
     if device.type != "cuda":
         raise ValueError(f"heston_qe_paths: unsupported device {device}")
     return _launch(params, timeline, num_paths, num_steps, seed, phase,
-                   calibration_date, smoothing, emit_noise)
+                   calibration_date, smoothing, emit_noise, path_offset, path_stride)
 
 
 heston_qe_paths.launches = 0       # kernel launches (all variants)

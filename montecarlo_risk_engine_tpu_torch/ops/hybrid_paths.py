@@ -40,7 +40,13 @@ ops/cuda_build), launched back to back with no host sync:
     memory and stored contiguously (a TMA bulk copy where the tiles are
     16-byte aligned).  One library per block tuple: the slot roles are
     compile-time constants (:func:`role_flags`), built at the tuple's first
-    use.  See the source's note.
+    use.  See the source's note.  Row i of the output draws global path
+    ``path_offset + path_stride * i`` (Philox counter word 0): a rank of a
+    path-sharded run (parallel/mesh.py, ops/path_shard.py) launches at
+    (rank, world size) and writes its own paths as its own contiguous
+    [T, N / R, D] plane, so the tiles and their bulk stores are unchanged;
+    (0, 1) is the whole run.  The table prologue does not depend on the
+    paths.
 
 :func:`hybrid_paths` dispatches on the device of ``params``: CUDA tensors
 launch the kernel (or raise), CPU tensors run
@@ -529,11 +535,12 @@ def hybrid_substep(slots: Sequence[Slot], prm, a, b, w, row):
 
 def hybrid_paths_reference(blocks: Sequence[KernelBlock], chol, params,
                            timeline: Sequence[float], num_paths: int, num_steps: int,
-                           seed: int = 0, phase: int = 0, calibration_date: float = 0.0):
+                           seed: int = 0, phase: int = 0, calibration_date: float = 0.0,
+                           path_offset: int = 0, path_stride: int = 1):
     """Plain PyTorch version of the kernel, float32 on the device of
     ``params``: the same Philox words, the same table and initial state,
     the same operations in the same order."""
-    _check_args(blocks, chol, params, num_paths, num_steps)
+    _check_args(blocks, chol, params, num_paths, num_steps, path_offset, path_stride)
     f32 = torch.float32
     device = params[0].device
     slots, state_dim, _ = kernel_slots(blocks)
@@ -551,7 +558,8 @@ def hybrid_paths_reference(blocks: Sequence[KernelBlock], chol, params,
         live, t_prev = float(t) > t_prev, float(t)
         if live:
             for k in range(num_steps):
-                z = rng.substep_normals(seed, phase, row0 + k, num_paths, len(slots), f32, device)
+                z = rng.substep_normals(seed, phase, row0 + k, num_paths, len(slots), f32, device,
+                                        path_offset, path_stride)
                 a, b = hybrid_substep(slots, prm, a, b, correlate(c32, z), table[row0 + k])
         cols = [None] * state_dim
         for s, sl in enumerate(slots):
@@ -564,13 +572,14 @@ def hybrid_paths_reference(blocks: Sequence[KernelBlock], chol, params,
     return torch.stack(out)
 
 
-def _check_args(blocks, chol, params, num_paths, num_steps):
+def _check_args(blocks, chol, params, num_paths, num_steps, path_offset=0, path_stride=1):
     _check_blocks(blocks, len(params))
     sim_dim = sum(b.n_sim for b in blocks)
     if np.asarray(chol).shape != (sim_dim, sim_dim):
         raise ValueError("chol must be [sim_dim, sim_dim]")
     if num_steps < 1 or not 0 < num_paths < 2 ** 32:
         raise ValueError(f"bad num_steps={num_steps} / num_paths={num_paths}")
+    rng.check_path_stride(num_paths, path_offset, path_stride)
 
 
 def _bind(lib: ctypes.CDLL):
@@ -586,6 +595,7 @@ def _bind(lib: ctypes.CDLL):
         ctypes.c_int, ctypes.c_int,                            # state_dim, table_width
         ctypes.c_int, ctypes.c_int, ctypes.c_uint32,           # points, steps, paths
         ctypes.c_uint32, ctypes.c_uint32,                      # seed, phase
+        ctypes.c_uint32, ctypes.c_uint32,                      # path offset, stride
         ctypes.c_void_p,                                       # stream
     ]
     fn.restype = ctypes.c_int
@@ -662,7 +672,7 @@ hybrid_table.launches = 0  # prologue launches
 
 
 def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
-            calibration_date):
+            calibration_date, path_offset=0, path_stride=1):
     lib = _library(blocks)
     fn = _bind(lib)
     tab, params64 = kernel_inputs(blocks, params, timeline, num_steps, calibration_date)
@@ -677,7 +687,7 @@ def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
         rc = fn(
             out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(), *slots,
             tab.state_dim, tab.table_width, n_pts, num_steps, num_paths,
-            seed & 0xFFFFFFFF, phase & 0xFFFFFFFF,
+            seed & 0xFFFFFFFF, phase & 0xFFFFFFFF, path_offset, path_stride,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if rc != 0:
@@ -688,22 +698,23 @@ def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
 
 def hybrid_paths(blocks: Sequence[KernelBlock], chol, params, timeline: Sequence[float],
                  num_paths: int, num_steps: int, seed: int = 0, phase: int = 0,
-                 calibration_date: float = 0.0):
+                 calibration_date: float = 0.0, path_offset: int = 0, path_stride: int = 1):
     """Joint states at timeline points: [T, N, D] float32 in block order.
 
     ``chol``: the static [sim_dim, sim_dim] lower-triangular joint factor
-    (host array); ``params``: the flat parameter tuple of 0-d tensors.  CUDA
-    ``params`` launch the kernel; CPU ``params`` run
-    :func:`hybrid_paths_reference`."""
-    _check_args(blocks, chol, params, num_paths, num_steps)
+    (host array); ``params``: the flat parameter tuple of 0-d tensors.  Row
+    i is global path ``path_offset + path_stride * i``.  CUDA ``params``
+    launch the kernel; CPU ``params`` run :func:`hybrid_paths_reference`."""
+    _check_args(blocks, chol, params, num_paths, num_steps, path_offset, path_stride)
     device = params[0].device
     if device.type == "cpu":
         return hybrid_paths_reference(blocks, chol, params, timeline, num_paths, num_steps,
-                                      seed=seed, phase=phase, calibration_date=calibration_date)
+                                      seed=seed, phase=phase, calibration_date=calibration_date,
+                                      path_offset=path_offset, path_stride=path_stride)
     if device.type != "cuda":
         raise ValueError(f"hybrid_paths: unsupported device {device}")
     return _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
-                   calibration_date)
+                   calibration_date, path_offset, path_stride)
 
 
 hybrid_paths.launches = 0  # kernel launches

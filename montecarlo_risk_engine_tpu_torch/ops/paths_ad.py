@@ -20,6 +20,11 @@ Counterpart of ``montecarlo_risk_engine_tpu/ops/pallas_paths_ad.py``
      exact pathwise derivative of the kernel's own trajectory.  Only the
      coarse timeline points are returned.
 
+On a rank of a path-sharded run ``num_paths`` is the rank's own count and
+the kernel forward the caller passes launches at the rank's path offset and
+stride (ops/path_shard.py), so the frozen draws and the rebuilt paths are
+the rank's own.
+
 A timeline point at zero distance from its predecessor gets one dense entry
 and draws nothing.  The dense run's draw counters are dense indices, so on a
 timeline with such points it is a different (equally valid) stream from the

@@ -6,8 +6,10 @@ Counterpart of ``montecarlo_risk_engine_tpu/ops/sobol.py``:
     as a host [dims, 32] array, built once per run;
   * :func:`sobol_uint32`: point ``p`` of the sequence is path ``p``, by the
     Gray-code formula x_p = XOR over the set bits b of gray(p) of v_b, so
-    every path is computed on its own, with no sequential state; a 32-bit
-    digital shift (``rng.qmc_shift``) randomises each dimension;
+    every path is computed on its own, with no sequential state (a rank of a
+    path-sharded run takes its global paths ``path_offset + path_stride *
+    i``); a 32-bit digital shift (``rng.qmc_shift``) randomises each
+    dimension;
   * :func:`sobol_uniforms`: (x + 0.5) 2^-32, never 0 or 1; normals through
     the inverse normal CDF (``torch.special.ndtri``);
   * :func:`brownian_bridge_matrix`: the orthogonal rotation that puts a
@@ -96,13 +98,16 @@ def brownian_bridge_matrix(dt) -> np.ndarray:
     return out
 
 
-def sobol_uint32(num_paths: int, vtab, shift=None, device="cpu") -> torch.Tensor:
-    """Sobol words of points 0 .. num_paths - 1: [num_paths, d] int64 in
-    [0, 2^32).  ``vtab``: [d, 32] direction numbers (numpy or tensor);
-    ``shift``: optional [d] digital-shift words."""
+def sobol_uint32(num_paths: int, vtab, shift=None, device="cpu", path_offset: int = 0,
+                 path_stride: int = 1) -> torch.Tensor:
+    """Sobol words of points ``path_offset + path_stride * i``, i = 0 ..
+    num_paths - 1: [num_paths, d] int64 in [0, 2^32).  ``vtab``: [d, 32]
+    direction numbers (numpy or tensor); ``shift``: optional [d]
+    digital-shift words."""
     v = torch.as_tensor(np.asarray(vtab, dtype=np.int64) if not isinstance(vtab, torch.Tensor)
                         else vtab, dtype=torch.int64, device=device)
-    idx = torch.arange(num_paths, dtype=torch.int64, device=device)[:, None]
+    idx = (torch.arange(num_paths, dtype=torch.int64, device=device)[:, None] * path_stride
+           + path_offset)
     gray = idx ^ (idx >> 1)
     x = torch.zeros((num_paths, v.shape[0]), dtype=torch.int64, device=device)
     for b in range(_BITS):
@@ -112,9 +117,10 @@ def sobol_uint32(num_paths: int, vtab, shift=None, device="cpu") -> torch.Tensor
     return x
 
 
-def sobol_uniforms(num_paths: int, vtab, shift, dtype, device="cpu") -> torch.Tensor:
+def sobol_uniforms(num_paths: int, vtab, shift, dtype, device="cpu", path_offset: int = 0,
+                   path_stride: int = 1) -> torch.Tensor:
     """Scrambled Sobol uniforms in (0, 1): [num_paths, d]."""
-    x = sobol_uint32(num_paths, vtab, shift, device)
+    x = sobol_uint32(num_paths, vtab, shift, device, path_offset, path_stride)
     return (x.to(dtype) + 0.5) * (2.0 ** -32)
 
 

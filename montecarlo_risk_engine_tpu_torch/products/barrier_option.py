@@ -24,8 +24,10 @@ Two formulas differ from the JAX package's, which are wrong:
 
 Bridge uniforms come from ``rng.bridge_uniforms`` (Philox under
 ``PHASE_BRIDGE``, seed 0, counter (product id, barrier index, path,
-interval)); ``bridge_source``, set by the controller, replaces that stream
-(the seam the parity tests feed the JAX package's threefry uniforms through).
+interval), path the global index: under the controller's path sharding,
+``path_sharding``, a rank draws its own paths'); ``bridge_source``, set by
+the controller, replaces that stream (the seam the parity tests feed the JAX
+package's threefry uniforms through; it is asked for this rank's paths).
 
 The bridge needs the volatility, which the JAX package reads as
 ``params[1]`` (barrier_option.py:146): the Black-Scholes volatility under
@@ -89,6 +91,7 @@ class BarrierOption(Product):
         # (product id, barrier index, num paths, num intervals) -> uniforms
         # [num paths, num intervals]; None draws rng.bridge_uniforms.
         self.bridge_source: Optional[Callable] = None
+        self.path_sharding = None  # set by the controller
 
         self.product_timeline = (self.maturity,)
         self.modeling_timeline = tuple(
@@ -157,9 +160,11 @@ class BarrierOption(Product):
         uniforms = None
         if self.use_brownian_bridge:
             n, n_int = monitored.shape[0], len(self.modeling_timeline) - 1
+            sh = self.path_sharding
+            where = {} if sh is None else dict(path_offset=sh.rank, path_stride=sh.world_size)
             draw = self.bridge_source or (
                 lambda pid, k, n, m: rng.bridge_uniforms(pid, k, n, m, monitored.dtype,
-                                                         monitored.device))
+                                                         monitored.device, **where))
             uniforms = [draw(self.product_id, k, n, n_int).to(monitored)
                         for k in range(len(self._barriers()))]
         normalized = self.payoff(monitored, model, params, uniforms) / numeraire

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from montecarlo_risk_engine_tpu_torch.ops.noise import matmul_t
 from montecarlo_risk_engine_tpu_torch.requests import (
     AtomicRequest,
     AtomicRequestType,
@@ -132,7 +133,7 @@ class Product:
 
     def evaluate_regression_grid(self, explanatory, regression_function, coeffs_all_states):
         """[..., N, S] continuation values: basis(x [..., N]) @ coeffs[..., S, deg].T."""
-        return regression_function.get_regression_matrix(explanatory) @ coeffs_all_states.mT
+        return matmul_t(regression_function.get_regression_matrix(explanatory), coeffs_all_states)
 
     def compute_continuation_values(self, explanatory, regression_function, state_matrix,
                                     coeffs_all_states):

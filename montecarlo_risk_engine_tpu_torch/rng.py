@@ -22,7 +22,10 @@ so the lanes never meet.  The Sobol sampler's digital shift is word 0 at
 (dimension, 0, 0, 2) (:func:`qmc_shift`), once per phase.
 Every draw is a pure function of (seed, phase, path, substep), so pre-sim and
 main-sim streams never collide and a path's draws do not depend on how many
-paths the run has.
+paths the run has.  The path-indexed draws take a ``path_offset`` and a
+``path_stride``: local path i is global path ``path_offset + path_stride *
+i`` (a rank of a path-sharded run, parallel/mesh.py), so a rank draws its
+own paths' numbers; (0, 1) is the whole run.
 
 Torch has no 32x32->64 multiply-high and int64 products of two 32-bit words
 overflow, so :func:`_mulhilo` splits one factor into 16-bit limbs.
@@ -103,13 +106,28 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
+def path_index(num_paths: int, path_offset: int, path_stride: int, device) -> torch.Tensor:
+    """Global indices ``path_offset + path_stride * i`` of local paths
+    0 .. num_paths - 1, int64 [num_paths]."""
+    return torch.arange(num_paths, dtype=torch.int64, device=device) * path_stride + path_offset
+
+
+def check_path_stride(num_paths: int, path_offset: int, path_stride: int) -> None:
+    """Local paths 0 .. num_paths - 1 are global paths ``path_offset +
+    path_stride * i``, each a 32-bit Philox counter word."""
+    if path_stride < 1 or path_offset < 0 or (
+            path_offset + path_stride * (num_paths - 1) >= 2 ** 32):
+        raise ValueError(f"bad path_offset={path_offset} / path_stride={path_stride} for "
+                         f"{num_paths} paths")
+
+
 def substep_draws(seed: int, phase: int, counter: int, num_paths: int,
-                  dtype: torch.dtype, device):
+                  dtype: torch.dtype, device, path_offset: int = 0, path_stride: int = 1):
     """(z_s, z_v, u) for one substep of every path, each [num_paths].
 
     The stream of the CUDA path kernel: Philox words at counter
     (path, counter, 0, 0) under key (seed, phase)."""
-    paths = torch.arange(num_paths, dtype=torch.int64, device=device)
+    paths = path_index(num_paths, path_offset, path_stride, device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     step = torch.full((), int(counter) & _MASK32, dtype=torch.int64, device=device)
     w0, w1, w2, _ = philox4x32_10((paths, step, zero, zero), (seed, phase))
@@ -118,13 +136,14 @@ def substep_draws(seed: int, phase: int, counter: int, num_paths: int,
 
 
 def bridge_uniforms(product_id: int, barrier_idx: int, num_paths: int, num_intervals: int,
-                    dtype: torch.dtype, device) -> torch.Tensor:
+                    dtype: torch.dtype, device, path_offset: int = 0,
+                    path_stride: int = 1) -> torch.Tensor:
     """[num_paths, num_intervals] uniforms of a barrier's Brownian-bridge
     crossing test: word 0 of the Philox call at counter (product id, barrier
     index, path, interval) under key (0, PHASE_BRIDGE).  The stream is
     keyed by seed 0, not by the run's root seed, as the JAX package keys its
     bridge stream by ``root_key(0)`` (barrier_option.py:189)."""
-    paths = torch.arange(num_paths, dtype=torch.int64, device=device)[:, None]
+    paths = path_index(num_paths, path_offset, path_stride, device)[:, None]
     intervals = torch.arange(num_intervals, dtype=torch.int64, device=device)[None, :]
     word = lambda v: torch.full((), int(v) & _MASK32, dtype=torch.int64, device=device)
     w0, _, _, _ = philox4x32_10((word(product_id), word(barrier_idx), paths, intervals),
@@ -133,7 +152,8 @@ def bridge_uniforms(product_id: int, barrier_idx: int, num_paths: int, num_inter
 
 
 def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim: int,
-                    dtype: torch.dtype, device) -> torch.Tensor:
+                    dtype: torch.dtype, device, path_offset: int = 0,
+                    path_stride: int = 1) -> torch.Tensor:
     """``sim_dim`` standard normals for one substep of every path, [N, sim_dim].
 
     Call ``c`` at counter (path, counter, c, 0) gives normals 4c .. 4c+3:
@@ -141,7 +161,7 @@ def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim
     hybrid path kernel (csrc/hybrid_paths.cu).  Only the normals asked for
     are computed, so an odd ``sim_dim`` takes the cosine half of its last
     pair."""
-    paths = torch.arange(num_paths, dtype=torch.int64, device=device)
+    paths = path_index(num_paths, path_offset, path_stride, device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     step = torch.full((), int(counter) & _MASK32, dtype=torch.int64, device=device)
     cols = []
@@ -163,12 +183,13 @@ def substep_normals(seed: int, phase: int, counter: int, num_paths: int, sim_dim
 
 
 def substep_uniform(seed: int, phase: int, counter: int, num_paths: int,
-                    dtype: torch.dtype, device) -> torch.Tensor:
+                    dtype: torch.dtype, device, path_offset: int = 0,
+                    path_stride: int = 1) -> torch.Tensor:
     """[num_paths] uniforms for one substep from a lane of their own: word 0
     of the Philox call at counter (path, counter, 0, LANE_UNIFORM).  The
     normals of :func:`substep_normals` take counter word 3 = 0, so this
     stream is disjoint from them for any ``sim_dim``."""
-    paths = torch.arange(num_paths, dtype=torch.int64, device=device)
+    paths = path_index(num_paths, path_offset, path_stride, device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     step = torch.full((), int(counter) & _MASK32, dtype=torch.int64, device=device)
     lane = torch.full((), LANE_UNIFORM, dtype=torch.int64, device=device)

@@ -2,11 +2,12 @@
 
 Counterpart of ``montecarlo_risk_engine_tpu/utils/regression.py``: the
 monomial basis and ``fit_least_squares`` by normal equations with column
-equilibration, optional per-path weights and a scale-relative ridge.  The
-JAX package reduces the path axis in a fixed pairwise order
-(``fixed_tree_sum``) for its sharding determinism contract; the port runs on
-one card and uses ``torch.sum``.  Both take leading batch dimensions, so a
-bucket of products fits in one batched solve.
+equilibration, optional per-path weights and a scale-relative ridge.  Every
+path-axis sum is a ``fixed_tree_sum`` (JAX regression.py:59-96), over every
+rank's paths under a path sharding, so the coefficients have the same bits on
+any number of ranks; the solve's inputs are then replicated and every rank
+solves the same system.  Both take leading batch dimensions, so a bucket of
+products fits in one batched solve.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from montecarlo_risk_engine_tpu_torch.metrics.metrics import fixed_tree_sum, global_count
 
 
 class RegressionFunction:
@@ -42,7 +45,7 @@ PolyomialRegression = PolynomialRegression
 
 
 def fit_least_squares(A: torch.Tensor, Y: torch.Tensor, ridge_rel: Optional[float] = None,
-                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      weights: Optional[torch.Tensor] = None, sharding=None) -> torch.Tensor:
     """``argmin sum_n w_n (A c - Y)_n^2`` for A [..., N, deg], Y [..., N, S]
     (or [..., N]) and optional weights [..., N]; returns coeffs [..., S, deg]
     (regression.py:45-96).
@@ -52,20 +55,26 @@ def fit_least_squares(A: torch.Tensor, Y: torch.Tensor, ridge_rel: Optional[floa
     machine epsilons: 1e-10 in float64, 1e-4 in float32) times the mean Gram
     diagonal keeps degenerate bases (a constant explanatory at t = 0)
     solvable.  The solve reports no error for a singular system, as XLA's
-    does not."""
+    does not.  ``sharding``: N is this rank's share of the paths."""
     if Y.dim() == A.dim() - 1:
         Y = Y[..., None]
     n, deg = A.shape[-2:]
-    col_scale = torch.clamp(torch.sqrt(torch.sum(A * A, dim=-2) / n), min=1e-30)
+    n = global_count(n, sharding)
+    col_scale = torch.clamp(torch.sqrt(fixed_tree_sum(A * A, -2, sharding) / n), min=1e-30)
     A_s = A / col_scale[..., None, :]
     A_w = A_s if weights is None else A_s * weights[..., None]
-    gram = torch.stack([torch.sum(A_w[..., d:d + 1] * A_s, dim=-2) for d in range(deg)], dim=-2)
+    # the Gram rows and right-hand sides in one tree sum of the [..., N, deg,
+    # deg + S] products A_w[n, d] [A_s | Y][n, j]: each entry the bits of its
+    # own tree sum, in one launch per halving
+    lead = torch.broadcast_shapes(A_s.shape[:-1], Y.shape[:-1])
+    cols = torch.cat([A_s.expand(lead + (deg,)), Y.expand(lead + Y.shape[-1:])], dim=-1)
+    both = fixed_tree_sum(A_w[..., :, :, None] * cols[..., :, None, :], -3, sharding)
+    gram, rhs = both[..., :deg], both[..., deg:]
     if ridge_rel is None:
         ridge_rel = 1e-10 if torch.finfo(A.dtype).bits >= 64 else 1e-4
     scale = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) / deg
     eye = torch.eye(deg, dtype=A.dtype, device=A.device)
     gram = gram + (ridge_rel * scale + 1e-30)[..., None, None] * eye
-    rhs = torch.stack([torch.sum(A_w[..., d:d + 1] * Y, dim=-2) for d in range(deg)], dim=-2)
     # LU factor and solve, the steps of torch.linalg.solve_ex with the same
     # numbers: solve's own forward-mode rule is wrong under a second forward
     # tangent (torch.func.jvp of jvp), and these two are differentiated

@@ -111,3 +111,49 @@ def test_engine_refuses_unported_samplers():
     for kwargs in (dict(antithetic=True), dict(sampler="sobol")):
         assert torch.isfinite(simulate_paths(model, model.initial_params(), SimulationScheme.QE,
                                              SLICE_TIMELINE, 8, 1, 43, **kwargs)).all()
+
+
+@pytest.mark.parametrize("scheme_name", ["QE", "EULER"])
+def test_remat_matches_the_recorded_pass_under_every_transform(scheme_name, monkeypatch):
+    """``remat`` recomputes each point's substeps in the backward pass: the
+    gradient under plain autograd, under ``torch.func.vjp`` with ``vmap``
+    over the cotangents (the controller's reverse mode) and forward over it
+    (the Hessian rows' reverse branch) equals the recorded pass's, and the
+    recomputing Function ran in each."""
+    from torch.func import jvp, vjp, vmap
+
+    import montecarlo_risk_engine_tpu_torch.engine.engine as engine
+
+    calls = []
+    apply = engine._Remat.apply
+    monkeypatch.setattr(engine._Remat, "apply", lambda *a: calls.append(1) or apply(*a))
+    model = HestonModel(0.0, **MODEL_KW)
+    params = model.initial_params()
+    eye = torch.eye(2, dtype=torch.float64)
+    tangent = tuple(torch.full_like(p, 0.5) for p in params)
+
+    def values(remat):
+        def fn(p):
+            s = simulate_paths(model, p, SimulationScheme[scheme_name], SLICE_TIMELINE, 64, 2,
+                               43, root_seed=5, remat=remat)
+            return torch.stack([s[..., 0].mean(), (s[..., 1] * s[..., 0]).mean()])
+        return fn
+
+    def grads(remat):
+        p = tuple(x.clone().requires_grad_(True) for x in params)
+        return torch.stack(torch.autograd.grad(values(remat)(p)[1], p))
+
+    def jacrev(remat, p=params):
+        return torch.stack(vmap(vjp(values(remat), p)[1])(eye)[0])
+
+    def hessian_row(remat):
+        return jvp(lambda p: jacrev(remat, p), (params,), (tangent,))[1]
+
+    for check in (grads, jacrev, hessian_row):
+        calls.clear()
+        plain = check(False)
+        assert not calls
+        rematted = check(True)
+        assert calls, f"{check.__name__}: no point was recomputed"
+        np.testing.assert_allclose(rematted.numpy(), plain.numpy(), rtol=1e-13, atol=1e-15,
+                                   err_msg=check.__name__)
