@@ -60,7 +60,12 @@ plain PyTorch version:
     over K1's stages) through its decomposition tool,
     ``montecarlo_risk_engine_tpu_torch.tools.kernel_decomposition``, at the
     shapes of ``benchmarks/kernel_decomposition.py`` (1,000,000 paths x 10
-    points x 4 substeps).
+    points x 4 substeps);
+  * the 33 example scripts of ``examples_torch/`` (the port of
+    ``examples/``), each through its ``main()`` at its own default size
+    (20,000-200,000 paths, the sweeps as written), on K1 and K2 where their
+    books reach them, and one north-star forward run traced through
+    ``run_simulation(profile_dir=...)``.
 
 Phases:
 
@@ -80,7 +85,9 @@ Phases:
      wrapper's host time: K1; K2 and its table prologue on the north-star
      shapes; K2 on ragged and misaligned launches; K1, K2 and every K3
      rung under torch.cuda.set_sync_debug_mode("error"); the K2 ladder of
-     every (block, scheme), the CVA book's bs_multi + cirpp tuple included;
+     every (block, scheme), the CVA book's bs_multi + cirpp tuple and the
+     examples' vasicek + cirpp and vasicek + cirpp_det tuples (at
+     cva_wwr_sweep's and cva_corporate_bond's shapes) included;
   3d. the substep ladder K3 (``k3_ladder``): every rung bitwise against
      its plain version, qe-full bitwise K1's states, qe-algebra within
      rtol 1e-5 / atol 1e-6 of qe-full on >= 99.99 % of paths (terminal
@@ -151,6 +158,22 @@ Phases:
      bridge Heston books (4 SE + 0.05 of the CF), the BS call's Sobol error
      below the pseudo-random SE, the antithetic BS-multi book (4 SE; deltas
      and vegas 2 %), each differentiated once;
+  7d. the examples (``examples_phase``), after 7c, with the card to
+     itself: every script of examples_torch/ twice at its own size (a cold
+     run, then the warm run whose wall is printed and whose launches are
+     counted from 0 just before it), its own asserts, and beside them:
+     pv_heston_convergence's QE PVs within 4 SE + 0.05 of the
+     characteristic-function price at substeps up to 0.25 y (PERF.md
+     section 2's Heston rule), the QE error not growing as substeps are
+     added (2 combined SE), one K1 launch per QE run,
+     sabr_calibration's fits (vol error < 1e-8, each parameter within
+     5e-3 max(1, |x|)), pv_basket_option's control variate (se_cv <
+     se_plain), pv_second_derivatives' gamma and vomma > 0, and K2's count
+     rising in every script whose books ``EXAMPLES`` puts on K2; one line
+     per script (warm wall, launches, headline value); then one north-star
+     forward run with ``run_simulation(profile_dir=...)``: the trace holds
+     K2's kernel by its CUDA symbol (``hybrid_kernel``), and the values
+     equal the unprofiled run's bit for bit;
   8. profile the BS-multi book and the mixed book's forward run, batched
      and per product, at scale 0.1 (after all the walls: a profiler run
      slows the launches that follow it);
@@ -174,7 +197,9 @@ turns, in one call).
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
-    python3 chip_smoke.py [--split-only [--books-only] | --hessians-only]
+    python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only]
+
+(``--examples-only``: phase 7d alone, after building K1 and K2.)
 
 (``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
 rank of phase 6b, started by the smoke itself.)
@@ -2689,6 +2714,8 @@ def k2_ladder(device, issue=None):
     rows["s2f euler"] = model_rung("s2f euler", s2f_book(E, False), device, issue)
     rows["bs_multi, cirpp euler"] = model_rung("bs_multi, cirpp euler", cva_controller(), device,
                                                issue)
+    for label, c in example_books().items():
+        rows[label] = model_rung(label, c, device, issue)
     mixed = mixed_model()
     ns_dense, _ = dense_timeline(0.0, north_star(NS_PATHS, False).simulation_timeline, 1)
     rows["bs_multi, vasicek, hw, cirpp_det euler"] = k2_rung(
@@ -2705,6 +2732,7 @@ def k2_block_tuples():
                mt.SimulationScheme.MILSTEIN)
     books = [route_book(spec) for spec in route_specs().values()]
     books += [hw_book(A), hw_book(M), s2f_book(A, False), s2f_book(E, False), cva_controller()]
+    books += list(example_books().values())
     return ([north_star(NS_PATHS, False).model.kernel_blocks(), [bs_multi_model().kernel_block(A)]]
             + [blocks_of(c)[0] for c in books])
 
@@ -3165,6 +3193,20 @@ def main():
     rows["bs_multi exact"]["launches"] += hessian_launches["bs_multi exact"]
     ns_row["launches"] += hessian_launches["north star"]
     table_json["launches"] += hessian_launches["hybrid_table, north star"]
+
+    # 7d. the 33 example scripts at their own sizes, each with its counts
+    # from 0, and one north-star forward run traced through profile_dir
+    torch.cuda.empty_cache()
+    example_launches = examples_phase(device)
+    k1_launches += example_launches.pop("K1")
+    table_json["launches"] += example_launches.pop("hybrid_table")
+    for label, n in example_launches.items():
+        rows[label]["launches"] += n
+    ns_launches, ns_table_launches = profiled_north_star()
+    ns_row["launches"] += ns_launches
+    table_json["launches"] += ns_table_launches
+    torch.cuda.empty_cache()
+    print(f"[time] examples done after {time.perf_counter() - t_start:.1f} s")
     k2_rows = [ns_row, ks_row, *rows.values(), table_json]
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows + k3_rows),
           "a kernel of the main paths never launched")
@@ -3198,6 +3240,239 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# -- 7d. the example scripts (examples_torch/) at their own sizes ---------------
+
+# The path kernel each script's books reach on the card, and the K2 row its
+# block tuple adds to: "K1", "K2" or None (no simulated book: closed forms,
+# host-side calibration, a book of analytic PVs only, or the engine called
+# directly); the Sobol runs of pv_sobol_convergence and the Euler runs of
+# pv_heston_convergence take the engine beside their kernel runs.
+EXAMPLES = {
+    "basket_cds_copula": (None, None),
+    "cirpp_scenarios_vs_deterministic_hazard": (None, None),
+    "cva_corporate_bond": ("K2", "vasicek, cirpp_det euler"),
+    "cva_wwr_sweep": ("K2", "vasicek, cirpp euler"),
+    "ee_pfe_american_equity_option": ("K2", "bs exact"),
+    "ee_pfe_barrier_option": ("K2", "bs exact"),
+    "ee_pfe_bermudan_bond_option": ("K2", "vasicek exact"),
+    "ee_pfe_bermudan_equity_option": ("K2", "bs exact"),
+    "ee_pfe_bermudan_swaption": ("K2", "vasicek exact"),
+    "ee_pfe_binary_option": ("K2", "bs exact"),
+    "ee_pfe_bond": ("K2", "vasicek exact"),
+    "ee_pfe_european_vs_analytic": ("K2", "bs exact"),
+    "ee_pfe_flexicall": ("K2", "bs exact"),
+    "ee_pfe_storage": ("K2", "s2f euler"),
+    "ee_pfe_swap_collateralized": ("K2", "vasicek exact"),
+    "ee_pfe_swap_profiles": ("K2", "vasicek exact"),
+    "ee_pfe_swaption": ("K2", "vasicek exact"),
+    "eepe_simulation": ("K2", "vasicek exact"),
+    "heston_calibration": (None, None),
+    "lsm_convergence_study": ("K2", "bs exact"),
+    "pv_barrier_option": ("K2", "bs exact"),
+    "pv_basket_option": ("K2", "bs_multi exact"),
+    "pv_bermudan_option": ("K2", "bs exact"),
+    "pv_binary_option": ("K2", "bs exact"),
+    "pv_european_bond_option": ("K2", "vasicek exact"),
+    "pv_european_option": ("K2", "bs exact"),
+    "pv_heston_convergence": ("K1", None),
+    "pv_second_derivatives": (None, None),
+    "pv_sobol_convergence": ("K2", "bs exact"),
+    "pv_storage": ("K2", "s2f euler"),
+    "sabr_calibration": (None, None),
+    "storage_volume_constraints": (None, None),
+    "storage_volume_over_time": ("K2", "s2f euler"),
+}
+# Keywords of a script's main() beyond the device, by script: none, each
+# runs at its own default size (a CPU rehearsal shrinks them here; a cut of
+# a sweep's depth for time would go here and into PERF.md section 4).
+EXAMPLE_KW = {}
+
+
+def example_books():
+    """The controllers of the two examples whose K2 block tuples no other
+    phase launches, at the scripts' own shapes, by rung label."""
+    from examples_torch import cva_corporate_bond, cva_wwr_sweep
+
+    return {"vasicek, cirpp euler": cva_wwr_sweep.controller(0.5, device="cuda")[0],
+            "vasicek, cirpp_det euler": cva_corporate_bond.controller(0.4, 50_000, "cuda")[0]}
+
+
+# The longest substep (years) at which the Heston PV rule applies.
+HESTON_RULE_MAX_DT = 0.25
+# The headline of each script that runs no controller: (label, value) of
+# what it returns at save_plot=False.
+HEADLINES = {
+    "basket_cds_copula": lambda out: ("gaussian first-to-default leg", out["gaussian", 1]),
+    "cirpp_scenarios_vs_deterministic_hazard": lambda out: (
+        "CIR++ mean survival at 5y", out["CIR++ MC mean"][-1]),
+    "heston_calibration": lambda out: ("max price residual", out["max_residual"]),
+    "sabr_calibration": lambda out: ("max vol error", max(r["max_vol_err"]
+                                                          for r in out.values())),
+    "storage_volume_constraints": lambda out: ("optimized vmin at day 90",
+                                               out["optimized vmin"][-1]),
+    "storage_volume_over_time": lambda out: ("peak mean volume", out["mean volume"].max()),
+}
+
+
+def example_checks(name, out, k1):
+    """The phase's checks beside the script's own asserts; returns a note
+    for the script's line, or None."""
+    if name == "pv_heston_convergence":
+        # PERF.md section 2's Heston rule where its 0.05 holds QE's O(dt)
+        # bias (a substep of at most the Heston book's 0.25 y); over longer
+        # substeps the bias is what the script shows (the JAX package's QE
+        # PV at one 1 y substep is 0.33 below the CF price too), so there the
+        # error may only shrink as substeps are added, within 2 combined SE.
+        qe = out["runs"]["Andersen QE"]
+        for n, (pv, se) in zip(out["steps"], qe):
+            if out["maturity"] / n <= HESTON_RULE_MAX_DT:
+                check(abs(pv - out["cf"]) < 4 * se + 0.05,
+                      f"{name}: QE pv {pv} at {n} substeps vs cf {out['cf']}")
+        for (pv0, se0), (pv1, se1) in zip(qe, qe[1:]):
+            check(abs(pv1 - out["cf"]) < abs(pv0 - out["cf"]) + 2 * math.hypot(se0, se1),
+                  f"{name}: the QE error grows with substeps ({pv0} -> {pv1})")
+        qe_runs = len(qe)
+        check(k1 == qe_runs, f"{name}: {k1} K1 launches for {qe_runs} QE runs")
+        return "QE PVs " + ", ".join(f"{pv:.4f} +- {se:.4f}" for pv, se in
+                                     out["runs"]["Andersen QE"]) + f" vs CF {out['cf']:.6f}"
+    elif name == "sabr_calibration":
+        for maturity, r in out.items():
+            check(r["max_vol_err"] < 1e-8, f"{name}: T={maturity} max vol err {r['max_vol_err']}")
+            for t, f in zip(r["true"], r["fit"]):
+                check(abs(t - f) < 5e-3 * max(1.0, abs(t)), f"{name}: T={maturity} {r}")
+    elif name == "pv_basket_option":
+        check(out["se_cv"] < out["se_plain"], f"{name}: se_cv {out['se_cv']} >= se_plain")
+    elif name == "pv_second_derivatives":
+        check(out[0] > 0.0 and out[1] > 0.0, f"{name}: gamma {out[0]}, vomma {out[1]}")
+    return None
+
+
+def examples_phase(device):
+    """Phase 7d: every script of examples_torch/ through its main() at its
+    own default size on ``device`` (no plot), twice: a cold run, then the
+    warm run whose wall is printed and whose launches are counted from 0
+    just before it.  Beside the script's own asserts: the checks of
+    ``example_checks``, and K1's or K2's count rising where ``EXAMPLES``
+    says the script's books reach it.  A script's own table goes to its
+    output only when it fails.  One line per script: its warm wall, its K1,
+    K2 and prologue launches and its headline value (the first metric of
+    its last controller run, with its MC error, else ``HEADLINES``).
+    Returns the launches: {"K1": n, "hybrid_table": n, K2 row label: n}."""
+    import contextlib
+    import importlib
+    import inspect
+    import io
+
+    real_run = mt.SimulationController.run_simulation
+    captured = []
+
+    def recording(self, *args, **kwargs):
+        results = real_run(self, *args, **kwargs)
+        captured.append(results)
+        return results
+
+    launches = {"K1": 0, "hybrid_table": 0}
+    walls = {}
+    t0 = time.perf_counter()
+    mt.SimulationController.run_simulation = recording
+    try:
+        for name, (kernel, row) in EXAMPLES.items():
+            mod = importlib.import_module(f"examples_torch.{name}")
+            kw = dict(EXAMPLE_KW.get(name, {}), device=device)
+            if "save_plot" in inspect.signature(mod.main).parameters:
+                kw["save_plot"] = False
+            text = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(text):
+                    cold = wall_seconds(lambda: mod.main(**kw))
+                    heston_qe_paths.launches = 0
+                    reset_k2_counts()
+                    del captured[:]
+                    out = None
+
+                    def run():
+                        nonlocal out
+                        out = mod.main(**kw)
+
+                    warm = wall_seconds(run)
+                    k1, k2 = heston_qe_paths.launches, hybrid_paths.launches
+                    table = k2_module.hybrid_table.launches
+                    note = example_checks(name, out, k1)
+                    check(kernel != "K1" or k1 > 0, f"{name}: no K1 launch")
+                    check(kernel != "K2" or k2 > 0, f"{name}: no K2 launch")
+                    check(table == k2, f"{name}: {table} prologue launches for {k2} K2 launches")
+            except BaseException:
+                print(text.getvalue())
+                raise
+            launches["K1"] += k1
+            launches["hybrid_table"] += table
+            if row is not None:
+                launches[row] = launches.get(row, 0) + k2
+            if captured:
+                r = captured[-1]
+                ns, metric = r.netting_set_names[0], r.metric_names[0]
+                head = (f"{ns} {metric}[0] {float(r.get_results(ns, metric, evaluation_idx=0)):.6g}"
+                        f" +- {float(r.get_mc_error(ns, metric, evaluation_idx=0)):.3g}")
+            else:
+                label, value = HEADLINES[name](out)
+                head = f"{label} {float(value):.6g}"
+            walls[name] = warm
+            print(f"[example {name}] warm wall {warm:.3f} s (cold {cold:.3f} s), launches K1 {k1} "
+                  f"K2 {k2} prologue {table}, {head}" + ("" if note is None else f"; {note}"))
+    finally:
+        mt.SimulationController.run_simulation = real_run
+    total = time.perf_counter() - t0
+    print(f"[examples] {len(EXAMPLES)} scripts, warm walls {sum(walls.values()):.1f} s, "
+          f"phase {total:.1f} s (cold and warm runs)")
+    return launches
+
+
+def profiled_north_star():
+    """One north-star forward run with run_simulation(profile_dir=...): the
+    trace is written, holds K2's kernel by its CUDA symbol, and the values
+    equal the unprofiled run's bit for bit.  Returns (K2, prologue)
+    launches of the profiled run."""
+    import glob
+    import tempfile
+
+    c = north_star(NS_PATHS, False)
+    plain = ns_values(c.run_simulation())
+    reset_k2_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = ns_values(c.run_simulation(profile_dir=tmp))
+        launches = (hybrid_paths.launches, k2_module.hybrid_table.launches)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(files) == 1, f"profile_dir holds {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    k2_events = [e for e in events if e.get("cat") == "kernel"
+                 and "hybrid_kernel" in str(e.get("name", ""))]
+    # CUPTI can drop a kernel event in a process that ran profilers before:
+    # the trace must hold K2's kernel, not an event for every launch
+    check(launches[0] == 2 and len(k2_events) >= 1,
+          f"the trace holds {len(k2_events)} hybrid_kernel events for {launches[0]} K2 launches")
+    for metric, (value, err) in plain.items():
+        check(np.array_equal(value, traced[metric][0]) and np.array_equal(err, traced[metric][1]),
+              f"profiled north star: {metric} differs from the unprofiled run")
+    print(f"[profile_dir north star] trace {size / 2**20:.1f} MiB, {len(events)} events, "
+          f"{len(k2_events)} hybrid_kernel events for {launches[0]} K2 launches "
+          f"({k2_events[0]['name'][:60]}), values bitwise the unprofiled run's")
+    return launches
+
+
+def examples_main():
+    """``--examples-only``: the card, K1 and K2 built as for the whole
+    smoke, then phase 7d and the profiled north star."""
+    device, smi = card()
+    cuda_build.load_libraries([("heston_qe", ())] + [("hybrid_paths", k2_module.role_flags(b))
+                                                     for b in k2_block_tuples()])
+    launches = examples_phase(device)
+    profiled_north_star()
+    print(smi)
+    print(json.dumps({"examples_launches": launches}))
 
 
 def phases_beside_hessians(device, issue, rows, t_start, hessians):
@@ -3252,6 +3527,8 @@ if __name__ == "__main__":
         split_main(books_only="--books-only" in sys.argv[1:])
     elif "--hessians-only" in sys.argv[1:]:
         hessian_main()
+    elif "--examples-only" in sys.argv[1:]:
+        examples_main()
     elif "--shard-rank" in sys.argv[1:]:
         shard_rank_main(sys.argv[1:])
     else:

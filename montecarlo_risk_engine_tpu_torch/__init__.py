@@ -1,7 +1,7 @@
 """montecarlo_risk_engine_tpu_torch — the PyTorch / CUDA port of the engine.
 
 A second package beside ``montecarlo_risk_engine_tpu`` (the JAX reference,
-which it never imports).  Ported so far: the Heston-QE European book, the
+which it never imports): the Heston-QE European book, the
 north-star xVA book (a ModelConfig of Vasicek, Black-Scholes and CIR++
 models; swaps and options; LSM exposures, MPoR collateral, CVA, EPE, PFE)
 the BS-multi European and basket books, and the mixed book of every
@@ -16,7 +16,11 @@ written in CUDA for Hopper (``ops/heston_qe.py`` + ``csrc/heston_qe.cu``,
 (antithetic pairs, scrambled Sobol with the Brownian bridge, ``ops/sobol.py``)
 and the streaming route (requests resolved inside the path loop, the
 streaming metric pipeline ``api/streaming_metrics.py``, kernel-streaming
-AD) are the controller's keywords, as in the JAX package.
+AD) are the controller's keywords, as in the JAX package, and so is path
+sharding over ``torch.distributed`` ranks (``parallel/``).  With the
+market-data loaders (``helpers/market_data.py``) the package has every
+module and public name of the JAX package; ``examples_torch/`` beside it
+holds the JAX package's example scripts.
 """
 
 from montecarlo_risk_engine_tpu_torch.api.controller import SimulationController

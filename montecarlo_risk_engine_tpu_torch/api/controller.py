@@ -1326,7 +1326,23 @@ class SimulationController:
 
     # -- public entry point (controller.py:2253-2358) -------------------------------
 
-    def run_simulation(self) -> SimulationResults:
+    def run_simulation(self, profile_dir: Optional[str] = None) -> SimulationResults:
+        """Run the pipeline; with ``profile_dir`` the whole run is traced by
+        ``torch.profiler`` (host ops, and the card's kernels on a CUDA
+        device) and the trace is written there as TensorBoard's
+        ``*.pt.trace.json`` (JAX controller.py:2240-2251, a
+        ``jax.profiler.trace``).  Tracing changes no value."""
+        if profile_dir is None:
+            return self._run_simulation_impl()
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+            return self._run_simulation_impl()
+
+    def _run_simulation_impl(self) -> SimulationResults:
         t0 = time.perf_counter()
         self._ensure_plan()
         params = self.model.initial_params(device=self.device, dtype=real_dtype())

@@ -247,7 +247,8 @@ def simulate_paths(
     path_sharding=None,
 ):
     """States at each timeline point, [num_points, num_paths, state_dim], on
-    ``device`` (default: the device of ``params``) in the working dtype; with
+    ``device`` (None: the card, as everywhere in the package; ``params`` are
+    moved there) in the working dtype; with
     an ``emit_schedule`` (states or None, emissions); with ``fold`` the final
     accumulator (see the module docstring).  Under ``path_sharding`` the
     path axis is this rank's num_paths / R paths.
@@ -274,7 +275,7 @@ def simulate_paths(
     if fold is not None and emit_schedule is None:
         raise ValueError("fold needs an emit_schedule")
     dtype = real_dtype()
-    device = params[0].device if device is None else resolve_device(device)
+    device = resolve_device(device)
     params = tuple(p.to(device) for p in params)
     if len(timeline) == 0:
         empty = torch.zeros((0, num_paths, model.state_dim), dtype=dtype, device=device)

@@ -102,8 +102,25 @@ class CIRPPModel(Model):
         et = torch.exp(h * t)
         return 4.0 * h * h * et / (2.0 * h + (kappa + h) * (et - 1.0)) ** 2
 
-    def psi(self, params, t: float):
-        return self.lambda_market(t) + self._D(params, t) - params[3] * self._E(params, t)
+    def _lambda_market_of(self, t, ref: torch.Tensor):
+        """:meth:`lambda_market` at a static time or, elementwise, at a
+        tensor of times (JAX cirpp.py:77-82's searchsorted)."""
+        if not torch.is_tensor(t):
+            return self.lambda_market(t)
+        idx = torch.searchsorted(like(self.tenors, ref), t.to(ref.dtype), side="left")
+        return like(self.hazard_rates, ref)[idx.clamp(max=len(self.tenors) - 1)]
+
+    def psi(self, params, t):
+        """The shift psi(t) at a static time or a tensor of times."""
+        return (self._lambda_market_of(t, params[3]) + self._D(params, t)
+                - params[3] * self._E(params, t))
+
+    def lambda_t(self, params, t, y_t):
+        """The intensity y_t + psi(t); y_t itself in the deterministic mode
+        (JAX cirpp.py:127-130)."""
+        if self.deterministic:
+            return y_t
+        return y_t + self.psi(params, t)
 
     # -- simulation ---------------------------------------------------------
 
@@ -237,6 +254,14 @@ class CIRPPModel(Model):
         a_tT, b_tT = self._A(params, t, T), self._B(params, t, T)
         pref = (sm_T / sm_t) * (a0t / a0T) * torch.exp(-b0t * y0 + b0T * y0)
         return per_row(pref * a_tT, y_t) * torch.exp(-per_row(b_tT, y_t) * y_t)
+
+    def credit_spread(self, params, t, T, y_t, delta: float = 0.40):
+        """The par spread -ln(delta + (1 - delta) S(t, T | y_t)) / (T - t)
+        of a claim recovering ``delta`` (JAX cirpp.py:313-317)."""
+        s = self.survival_probability(params, t, T, y_t)
+        dt = torch.clamp(like(T, s) - like(t, s), min=1e-12)
+        inside = torch.clamp(delta + (1.0 - delta) * s, min=1e-24)
+        return -torch.log(inside) / per_row(dt, s)
 
     def resolve_obs(self, params, kind, asset_id, t1, t2, state):
         if kind == AtomicRequestType.SURVIVAL_PROBABILITY:

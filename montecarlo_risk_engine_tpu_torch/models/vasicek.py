@@ -96,6 +96,10 @@ class VasicekModel(Model):
                  - (sigma * sigma / (4.0 * a)) * b * b)
         return torch.exp(alpha) * torch.exp(-b * rate_state)
 
+    def compute_bond_price(self, params, t1, t2, rate_state):
+        """The reference's name of :meth:`bond_price` (JAX vasicek.py:152-153)."""
+        return self.bond_price(params, t1, t2, rate_state)
+
     def resolve_obs(self, params, kind, asset_id, t1, t2, state):
         # vasicek.py:155-171
         if kind == AtomicRequestType.SPOT:

@@ -7,7 +7,8 @@ Counterpart of ``montecarlo_risk_engine_tpu/ops/quantile.py``:
   * :func:`order_statistics_bisect`, the same order statistics by bisection
     on the value range: only comparisons and count reductions, no sort.  The
     PFE metric takes it above ``PFE_BISECT_THRESHOLD`` paths, as the JAX
-    package does.
+    package does;
+  * :func:`quantile_bisect`, the reference convention by that bisection.
 
 Both are plain torch ops; neither needs a kernel of its own.  Under a
 path sharding the bisection counts every rank's samples (integer sums, exact
@@ -61,3 +62,11 @@ def order_statistics_bisect(values: torch.Tensor, ks: Sequence[int], iters: int 
     inf = torch.full((), math.inf, dtype=values.dtype, device=values.device)
     return rank_min(torch.where(values[None] > lo[..., None], values[None], inf).amin(dim=-1),
                     sharding)
+
+
+def quantile_bisect(values: torch.Tensor, q: float, iters: int = 96) -> torch.Tensor:
+    """``sorted(values)[ceil(q N) - 1]`` over the last axis by
+    :func:`order_statistics_bisect` (JAX quantile.py:88-96): the convention
+    of :func:`quantile_order_statistic` without a sort."""
+    k = int(math.ceil(q * values.shape[-1])) - 1
+    return order_statistics_bisect(values, [k], iters=iters)[0]

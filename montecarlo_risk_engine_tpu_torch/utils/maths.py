@@ -16,6 +16,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from montecarlo_risk_engine_tpu_torch.config import real_dtype
+
 
 def symmetric_linear_smoothing(x: torch.Tensor, is_fuzzy: bool, eps: float) -> torch.Tensor:
     if not is_fuzzy:
@@ -25,6 +27,12 @@ def symmetric_linear_smoothing(x: torch.Tensor, is_fuzzy: bool, eps: float) -> t
 
 def compute_degree_of_truth(x: torch.Tensor, is_fuzzy: bool, eps: float = 0.05) -> torch.Tensor:
     return symmetric_linear_smoothing(x, is_fuzzy, eps)
+
+
+def sigmoid_smoothing(x, beta: float = 500.0) -> torch.Tensor:
+    """The logistic step ``1 / (1 + exp(-beta x))`` (JAX maths.py:39-40)."""
+    x = x if torch.is_tensor(x) else torch.as_tensor(x, dtype=real_dtype())
+    return 1.0 / (1.0 + torch.exp(-beta * x))
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:

@@ -60,7 +60,8 @@ def test_engine_matches_jax_engine_on_injected_noise(scheme):
     ref = np.asarray(jax_simulate_paths(jm, jm.initial_params(), scheme_of(mj, scheme), TIMELINE,
                                         n, 2, phase, root_seed=3))
     states = simulate_paths(pm, pm.initial_params(), scheme, TIMELINE, n, 2, phase,
-                            noise_source=jax_engine_normals(3, phase, len(TIMELINE) * 2, n, 4))
+                            noise_source=jax_engine_normals(3, phase, len(TIMELINE) * 2, n, 4),
+                            device="cpu")
     assert states.shape == ref.shape == (len(TIMELINE), n, 4)
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-12)
 
@@ -97,7 +98,8 @@ def test_single_asset_steps_and_inversions_match_jax(name, scheme):
                                np.asarray(jm.covariance_matrix(jp, 0.25)), rtol=1e-15)
     assert pm.supports_kernel_paths(scheme) == jm.supports_pallas_paths(js)
     states = simulate_paths(pm, pp, scheme, TIMELINE, 128, 2, 43,
-                            noise_source=jax_engine_normals(1, 43, len(TIMELINE) * 2, 128, 1))
+                            noise_source=jax_engine_normals(1, 43, len(TIMELINE) * 2, 128, 1),
+                            device="cpu")
     np.testing.assert_allclose(states.numpy(),
                                np.asarray(jax_simulate_paths(jm, jp, js, TIMELINE, 128, 2, 43,
                                                              root_seed=1)),

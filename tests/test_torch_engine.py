@@ -55,6 +55,7 @@ def test_engine_matches_jax_engine_on_injected_noise(scheme_name, timeline, smoo
         model, params_from_numpy([np.asarray(p) for p in jparams]),
         SimulationScheme[scheme_name], timeline, n, num_steps, phase,
         noise_source=jax_engine_noise(0, phase, len(timeline) * num_steps, n),
+        device="cpu",
     )
     assert states.shape == ref.shape and states.dtype == torch.float64
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-14)
@@ -69,7 +70,7 @@ def test_engine_zero_interval_keeps_state_and_draws_nothing():
         return torch.zeros((8, 2), dtype=torch.float64), torch.full((8,), 0.5, dtype=torch.float64)
 
     states = simulate_paths(model, model.initial_params(), SimulationScheme.QE,
-                            EDGE_TIMELINE, 8, 2, 43, noise_source=source)
+                            EDGE_TIMELINE, 8, 2, 43, noise_source=source, device="cpu")
     assert calls == [2, 3, 6, 7, 8, 9]           # points 0 and 2 have zero length
     assert torch.equal(states[0], model.init_state(model.initial_params(), 8))
     assert torch.equal(states[1], states[2])
@@ -82,7 +83,7 @@ def test_engine_default_noise_is_the_kernel_stream():
     model = HestonModel(0.0, **MODEL_KW)
     params = model.initial_params()
     states = simulate_paths(model, params, SimulationScheme.QE, SLICE_TIMELINE, n,
-                            num_steps, 43, root_seed=5)
+                            num_steps, 43, root_seed=5, device="cpu")
     kernel = heston_qe_paths_reference(params, SLICE_TIMELINE, n, num_steps, seed=5,
                                        phase=43, dtype=torch.float64)
     # step_qe and the kernel place the 1e-12 guard differently (see
@@ -90,13 +91,19 @@ def test_engine_default_noise_is_the_kernel_stream():
     np.testing.assert_allclose(states.numpy(), kernel.numpy(), rtol=1e-7, atol=1e-7)
 
 
-def test_engine_device_argument():
+def test_engine_device_argument(monkeypatch):
+    """``device=None`` is the card, as everywhere in the package: without
+    CUDA it raises instead of running on the CPU parameters' device."""
     model = HestonModel(0.0, **MODEL_KW)
     params = model.initial_params()
-    on_params = simulate_paths(model, params, SimulationScheme.QE, SLICE_TIMELINE, 64, 2, 43)
     explicit = simulate_paths(model, params, SimulationScheme.QE, SLICE_TIMELINE, 64, 2, 43,
                               device="cpu")
-    assert explicit.device == torch.device("cpu") and torch.equal(on_params, explicit)
+    again = simulate_paths(model, params, SimulationScheme.QE, SLICE_TIMELINE, 64, 2, 43,
+                           device=torch.device("cpu"))
+    assert explicit.device == torch.device("cpu") and torch.equal(again, explicit)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_paths(model, params, SimulationScheme.QE, SLICE_TIMELINE, 64, 2, 43)
 
 
 def test_engine_refuses_unported_samplers():
@@ -110,7 +117,8 @@ def test_engine_refuses_unported_samplers():
                            SLICE_TIMELINE, n, 1, 43, **kwargs)
     for kwargs in (dict(antithetic=True), dict(sampler="sobol")):
         assert torch.isfinite(simulate_paths(model, model.initial_params(), SimulationScheme.QE,
-                                             SLICE_TIMELINE, 8, 1, 43, **kwargs)).all()
+                                             SLICE_TIMELINE, 8, 1, 43, device="cpu",
+                                             **kwargs)).all()
 
 
 @pytest.mark.parametrize("scheme_name", ["QE", "EULER"])
@@ -135,7 +143,7 @@ def test_remat_matches_the_recorded_pass_under_every_transform(scheme_name, monk
     def values(remat):
         def fn(p):
             s = simulate_paths(model, p, SimulationScheme[scheme_name], SLICE_TIMELINE, 64, 2,
-                               43, root_seed=5, remat=remat)
+                               43, root_seed=5, remat=remat, device="cpu")
             return torch.stack([s[..., 0].mean(), (s[..., 1] * s[..., 0]).mean()])
         return fn
 

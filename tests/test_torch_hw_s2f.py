@@ -46,7 +46,7 @@ def engines_agree(jm, pm, scheme, sim_dim, n=256, steps=2):
                                         root_seed=5))
     states = simulate_paths(pm, pm.initial_params(), scheme, TIMELINE, n, steps, 43,
                             noise_source=jax_engine_normals(5, 43, len(TIMELINE) * steps, n,
-                                                            sim_dim))
+                                                            sim_dim), device="cpu")
     assert states.shape == ref.shape
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-14)
 

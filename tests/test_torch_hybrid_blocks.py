@@ -130,7 +130,8 @@ def test_plain_kernel_matches_engine_on_one_stream(name, scheme):
     n = 512
     kernel = pm.kernel_paths(pm.initial_params(dtype=torch.float32), scheme, TIMELINE, n, 3,
                              seed=2, phase=43)
-    engine = simulate_paths(pm, pm.initial_params(), scheme, TIMELINE, n, 3, 43, root_seed=2)
+    engine = simulate_paths(pm, pm.initial_params(), scheme, TIMELINE, n, 3, 43, root_seed=2,
+                            device="cpu")
     assert kernel.shape == engine.shape == (len(TIMELINE), n, pm.state_dim)
     np.testing.assert_allclose(kernel.double().numpy(), engine.numpy(), rtol=2e-5, atol=1e-6)
 
@@ -147,7 +148,7 @@ def test_recovered_noise_jacobian_matches_direct_ad(name, scheme):
     n, steps = 256, 2
     timeline = TIMELINE[1:]
     dense, orig_idx = paths_ad.dense_timeline(0.0, timeline, steps)
-    forward = lambda p: simulate_paths(pm, p, scheme, dense, n, 1, 43, root_seed=7)
+    forward = lambda p: simulate_paths(pm, p, scheme, dense, n, 1, 43, root_seed=7, device="cpu")
     _, noise_fn, recon_fn = paths_ad.recovered_noise_fns(pm, scheme, timeline, n, steps, forward)
     z = noise_fn(params)
     np.testing.assert_allclose(recon_fn(params, z).numpy(), forward(params)[orig_idx].numpy(),
@@ -157,7 +158,7 @@ def test_recovered_noise_jacobian_matches_direct_ad(name, scheme):
     argnums = tuple(range(len(params)))
     rec = jacfwd(lambda *p: torch.mean(recon_fn(p, z) * w), argnums=argnums)(*params)
     direct = jacfwd(lambda *p: torch.mean(
-        simulate_paths(pm, p, scheme, timeline, n, steps, 43, root_seed=7) * w),
+        simulate_paths(pm, p, scheme, timeline, n, steps, 43, root_seed=7, device="cpu") * w),
         argnums=argnums)(*params)
     for a, b, pname in zip(rec, direct, pm.get_model_param_names()):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-6, atol=1e-12, err_msg=pname)

@@ -162,7 +162,8 @@ def test_engine_matches_jax_engine_on_injected_noise():
     ref = np.asarray(jax_simulate_paths(jm, jm.initial_params(), mj.SimulationScheme.EULER,
                                         TIMELINE, n, 2, phase, root_seed=3))
     states = simulate_paths(pm, pm.initial_params(), SimulationScheme.EULER, TIMELINE, n, 2, phase,
-                            noise_source=jax_engine_normals(3, phase, len(TIMELINE) * 2, n, 3))
+                            noise_source=jax_engine_normals(3, phase, len(TIMELINE) * 2, n, 3),
+                            device="cpu")
     assert states.shape == ref.shape == (len(TIMELINE), n, 5)
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-15)
 
@@ -248,7 +249,7 @@ def test_plain_kernel_matches_engine_on_the_same_stream():
     kernel = pm.kernel_paths(pm.initial_params(dtype=torch.float32), SimulationScheme.EULER,
                              TIMELINE, n, 2, seed=2, phase=43)
     engine = simulate_paths(pm, pm.initial_params(), SimulationScheme.EULER, TIMELINE, n, 2, 43,
-                            root_seed=2)
+                            root_seed=2, device="cpu")
     np.testing.assert_allclose(kernel.double().numpy(), engine.numpy(), rtol=2e-5, atol=1e-6)
 
 

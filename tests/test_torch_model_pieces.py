@@ -73,7 +73,7 @@ def test_steps_match_jax(name, scheme):
     steps, phase = 3, jax_rng.PHASE_MAINSIM
     states = simulate_paths(pm, pp, ps, TIMELINE, 128, steps, phase,
                             noise_source=jax_engine_normals(2, phase, len(TIMELINE) * steps, 128,
-                                                            pm.simulation_dim))
+                                                            pm.simulation_dim), device="cpu")
     np.testing.assert_allclose(states.numpy(), np.asarray(jax_simulate_paths(
         jm, jp, js, TIMELINE, 128, steps, phase, root_seed=2)), rtol=1e-12, atol=1e-15)
 
@@ -102,7 +102,8 @@ def test_model_config_analytical_covariance_matches_jax():
     assert not ph.supports_kernel_paths(A)
     phase = jax_rng.PHASE_PRESIM
     states = simulate_paths(ph, ph.initial_params(), A, TIMELINE, 128, 2, phase,
-                            noise_source=jax_engine_normals(5, phase, len(TIMELINE) * 2, 128, 3))
+                            noise_source=jax_engine_normals(5, phase, len(TIMELINE) * 2, 128, 3),
+                            device="cpu")
     np.testing.assert_allclose(states.numpy(), np.asarray(jax_simulate_paths(
         jh, jh.initial_params(), mj.SimulationScheme.ANALYTICAL, TIMELINE, 128, 2, phase,
         root_seed=5)), rtol=1e-12, atol=1e-15)

@@ -1,6 +1,7 @@
-"""The PyTorch port stands without JAX: it imports neither ``jax`` nor the
-JAX package, and ``chip_smoke.py`` refuses to run without a card or outside
-the repository."""
+"""The PyTorch port stands without JAX: neither the package, nor its example
+scripts (``examples_torch/``), nor ``chip_smoke.py`` imports ``jax`` or the
+JAX package; the engine's default device is the card; and ``chip_smoke.py``
+refuses to run without a card or outside the repository."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "montecarlo_risk_engine_tpu_torch"
+EXAMPLES = REPO / "examples_torch"
 FORBIDDEN = {"jax", "jaxlib", "montecarlo_risk_engine_tpu"}
 
 
@@ -33,6 +35,9 @@ def test_import_with_jax_blocked():
         "import montecarlo_risk_engine_tpu_torch as m\n"
         "for info in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
+        "import examples_torch as e\n"
+        "for info in pkgutil.iter_modules(e.__path__, e.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
         "print('ok')\n"
     )
     proc = _run(code, REPO, {"PYTHONPATH": str(REPO)})
@@ -41,6 +46,7 @@ def test_import_with_jax_blocked():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
+                         + sorted(str(p.relative_to(REPO)) for p in EXAMPLES.glob("*.py"))
                          + ["chip_smoke.py"])
 def test_sources_import_no_jax(path):
     tree = ast.parse((REPO / path).read_text())
@@ -53,6 +59,26 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_engine_defaults_to_the_card(monkeypatch):
+    """``simulate_paths`` without ``device=`` resolves to the card, as every
+    entry point does: with CUDA reported absent it raises the
+    ``resolve_device`` error instead of running on the CPU, where
+    ``Model.initial_params()`` puts the parameters."""
+    from montecarlo_risk_engine_tpu_torch import CIRPPModel, SimulationScheme, rng
+    from montecarlo_risk_engine_tpu_torch.engine.engine import simulate_paths
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = CIRPPModel(0.0, asset_id="cp", hazard_rates={1.0: 0.02, 5.0: 0.03}, kappa=0.4,
+                       theta=0.02, volatility=0.06, y0=0.015)
+    assert model.initial_params()[0].device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_paths(model, model.initial_params(), SimulationScheme.EULER, [0.5, 1.0], 64, 4,
+                       rng.PHASE_MAINSIM)
+    states = simulate_paths(model, model.initial_params(), SimulationScheme.EULER, [0.5, 1.0],
+                            64, 4, rng.PHASE_MAINSIM, device="cpu")
+    assert states.device == torch.device("cpu") and states.shape == (2, 64, 2)
 
 
 def test_dispatcher_refuses_other_devices():

@@ -163,10 +163,11 @@ def test_engine_sobol_matches_jax_on_its_shift(case, bridge):
     uniform = model.uses_uniforms(mt.SimulationScheme[scheme])
     shift = jax_shift(MAIN, sobol_dims(timeline, steps, model.simulation_dim, uniform, bridge))
     states = simulate_paths(model, params_of(jmodel), mt.SimulationScheme[scheme], timeline, n,
-                            steps, MAIN, sampler="sobol", qmc_bridge=bridge, qmc_shift=shift)
+                            steps, MAIN, sampler="sobol", qmc_bridge=bridge, qmc_shift=shift,
+                            device="cpu")
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-12)
     default = simulate_paths(model, model.initial_params(), mt.SimulationScheme[scheme], timeline,
-                             n, steps, MAIN, sampler="sobol", qmc_bridge=bridge)
+                             n, steps, MAIN, sampler="sobol", qmc_bridge=bridge, device="cpu")
     assert torch.isfinite(default).all() and not torch.equal(default, states)
 
 
@@ -187,10 +188,10 @@ def test_engine_antithetic_matches_jax_on_its_half_draws(case):
     uniform = model.uses_uniforms(mt.SimulationScheme[scheme])
     source = jax_half_draws(MAIN, len(timeline) * steps, n, model.simulation_dim, uniform)
     states = simulate_paths(model, params_of(jmodel), mt.SimulationScheme[scheme], timeline, n,
-                            steps, MAIN, antithetic=True, noise_source=source)
+                            steps, MAIN, antithetic=True, noise_source=source, device="cpu")
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-12)
     default = simulate_paths(model, model.initial_params(), mt.SimulationScheme[scheme], timeline,
-                             n, steps, MAIN, antithetic=True)
+                             n, steps, MAIN, antithetic=True, device="cpu")
     z, _ = philox_noise_source(model, mt.SimulationScheme[scheme], n // 2, MAIN, 0,
                                torch.float64, "cpu")(0)
     assert torch.isfinite(default).all() and z.shape == (n // 2, model.simulation_dim)
@@ -212,7 +213,7 @@ def test_engine_refusals_match_jax():
                                n, 1, MAIN, **kw)
     with pytest.raises(ValueError, match="qmc_shift"):
         simulate_paths(model, model.initial_params(), mt.SimulationScheme.EULER, (1.0,), 8, 1,
-                       MAIN, sampler="sobol", noise_source=lambda c: None)
+                       MAIN, sampler="sobol", noise_source=lambda c: None, device="cpu")
 
 
 # -- a Heston model inside a ModelConfig (the Philox uniform lane) ---------------
@@ -233,7 +234,7 @@ def test_heston_model_config_engine_matches_jax():
     assert ref.shape == (2, n, 3) and np.isfinite(ref).all()
     source = jax_full_draws(MAIN, len(timeline) * steps, n, model.simulation_dim)
     states = simulate_paths(model, params_of(jmodel), mt.SimulationScheme.QE, timeline, n, steps,
-                            MAIN, noise_source=source)
+                            MAIN, noise_source=source, device="cpu")
     np.testing.assert_allclose(states.numpy(), ref, rtol=1e-12, atol=1e-12)
     # The default Philox source: sim_dim 3 normals and a uniform from its own
     # lane, disjoint from the normals' words.
@@ -242,7 +243,7 @@ def test_heston_model_config_engine_matches_jax():
     assert torch.equal(u, rng.substep_uniform(0, MAIN, 1, n, torch.float64, "cpu"))
     assert not torch.equal(u, rng.substep_draws(0, MAIN, 1, n, torch.float64, "cpu")[2])
     assert torch.isfinite(simulate_paths(model, model.initial_params(), mt.SimulationScheme.QE,
-                                         timeline, n, steps, MAIN)).all()
+                                         timeline, n, steps, MAIN, device="cpu")).all()
     # K1's stream for Heston alone is unchanged: word 2 of the first call.
     alone = mt.HestonModel(0.0, **HESTON_KW)
     z1, u1 = philox_noise_source(alone, mt.SimulationScheme.QE, n, MAIN, 0, torch.float64, "cpu")(3)

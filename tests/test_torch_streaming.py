@@ -160,10 +160,11 @@ def test_engine_emissions_match_plane_resolution(book):
     assert schedule is not None and schedule.num_emitted_rows() > 0
     params = c.model.initial_params()
     args = (c.model, params, c.simulation_scheme, c.simulation_timeline, n, steps, MAIN)
-    states, emissions = simulate_paths(*args, emit_schedule=schedule)
-    plane = simulate_paths(*args)
+    states, emissions = simulate_paths(*args, emit_schedule=schedule, device="cpu")
+    plane = simulate_paths(*args, device="cpu")
     assert torch.equal(states, plane)
-    assert simulate_paths(*args, emit_schedule=schedule, collect_states=False)[0] is None
+    assert simulate_paths(*args, emit_schedule=schedule, collect_states=False,
+                          device="cpu")[0] is None
     streamed = plan.resolve_from_emissions(schedule, emissions)
     resolved = plan.resolve_requests(params, plane)
     assert len(streamed[0]) == len(resolved[0]) == plan.num_atomic_requests
