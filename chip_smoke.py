@@ -174,10 +174,7 @@ Phases:
      forward run with ``run_simulation(profile_dir=...)``: the trace holds
      K2's kernel by its CUDA symbol (``hybrid_kernel``), and the values
      equal the unprofiled run's bit for bit;
-  8. profile the BS-multi book and the mixed book's forward run, batched
-     and per product, at scale 0.1 (after all the walls: a profiler run
-     slows the launches that follow it);
-  9. print the card line, the kernels' JSON line and, last, the JSON result
+  8. print the card line, the kernels' JSON line and, last, the JSON result
      line.
 
 The Hessian rows are host-bound (second-order forward mode dispatches
@@ -187,12 +184,11 @@ its time limit (the walls of both carry the other's load on the card).
 
 ``--split-only`` runs only the call / launch-only / wrapper split of K1
 and K2 at the main paths' shapes, K1's substep loop by opcode, the warm
-walls of the three books and of the CVA and mixed books, the north-star
-forward run's host profile and the CVA and mixed books' kernel launches,
-for the package beside this file (``--books-only``: K1's opcodes and the
-CVA and mixed books' walls alone); a copy of the file run from another
-checkout's root measures that tree the same way (parent and change in
-turns, in one call).
+walls of the three books and of the CVA and mixed books and the north-star
+forward run's host profile, for the package beside this file
+(``--books-only``: K1's opcodes and the CVA and mixed books' walls alone);
+a copy of the file run from another checkout's root measures that tree
+the same way (parent and change in turns, in one call).
 
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
@@ -689,8 +685,6 @@ def heston_main_path(device):
     diff_s = wall_seconds(run_diff)
     print(f"[heston differentiated] warm wall {diff_s:.4f} s ({diff._grad_mode_resolved} mode), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_run("heston forward", run_fwd)
-    profile_run("heston differentiated", run_diff)
     launches = heston_qe_paths.launches  # this main path only
     print(f"  K1 launches: {launches} (forward 1 per run, differentiated 1 per run)")
 
@@ -736,31 +730,6 @@ def heston_main_path(device):
     print(f"  1y delta: pathwise {mc_delta:.6f} vs CF central difference {cf_delta:.6f} (gap {gap:.4%})")
     check(gap < 0.02, f"1y delta gap {gap:.4%}")
     return launches
-
-
-def profile_run(label: str, fn, host_ops: bool = True) -> None:
-    """One run under torch.profiler: wall, device busy time (the sum of the
-    CUDA kernels' durations) and the five kernels that take the most.  A
-    profiler run leaves the later launches of the process slower, so the
-    BS-multi and mixed books are profiled after every wall; the Heston and
-    north-star books keep their earlier order.  ``host_ops=False`` traces
-    the device alone, for the long runs (a million host op events take a
-    minute to read back; the busy time needs only the kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU] if host_ops else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
-        wall = wall_seconds(fn)
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e6
-    busy = sum(by_name.values())
-    print(f"  [profile {label}] wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}), {len(prof.events())} events")
-    for name, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
-        print(f"    {sec:.4f} s  {name[:90]}")
 
 
 def ns_values(results):
@@ -834,8 +803,6 @@ def north_star_main_path():
     print(f"[north-star differentiated] warm wall {diff_s:.4f} s ({diff._grad_mode_resolved} mode, "
           f"chunk {diff.grad_chunk_size}), peak memory {diff_peak:.2f} GiB")
     print(f"  K2 launches: {launches} (2 per run: presim + mainsim)")
-    profile_run("forward", run_fwd)
-    profile_run("differentiated", run_diff, host_ops=False)
     launches = hybrid_paths.launches  # this main path only
     grads = diff_results.get_derivatives("north_star", f"cva[{CP}]", evaluation_idx=0)
     print(f"  dCVA/d irs.rate {float(grads['irs.rate']):.6f}, dCVA/d eq.spot "
@@ -1373,10 +1340,9 @@ def sampler_phases():
 
 def streaming_phases():
     """The samplers and streaming phases that launch no kernel: the north
-    star at 16.8M paths, streaming against the plane, the sampler books,
-    then the 16.8M-path forward run's device busy share (the smoke runs
-    them in its second process after the Hessians, beside 7b; each stays
-    under ~45 GB)."""
+    star at 16.8M paths, streaming against the plane, the sampler books (the
+    smoke runs them in its second process after the Hessians, beside 7b;
+    each stays under ~45 GB)."""
     t0 = time.perf_counter()
     north_star_streaming()
     print(f"[time] 16.8M-path streaming phases: {time.perf_counter() - t0:.1f} s")
@@ -1384,14 +1350,6 @@ def streaming_phases():
     print(f"[time] streaming vs plane: {time.perf_counter() - t0:.1f} s")
     sampler_phases()
     print(f"[time] samplers: {time.perf_counter() - t0:.1f} s")
-    # last: a profiler run slows what follows it in the process
-    fwd = north_star(STREAM_PATHS, False, num_paths_presim=NS_PRESIM_FIT, streaming=True)
-    fwd.run_simulation()
-    profile_run(f"north star streaming forward, {STREAM_PATHS} paths", fwd.run_simulation,
-                host_ops=False)
-    del fwd
-    torch.cuda.empty_cache()
-    print(f"[time] streaming profile: {time.perf_counter() - t0:.1f} s")
 
 
 # -- second-order sensitivities --------------------------------------------------------
@@ -1837,8 +1795,7 @@ def same_values(kernel, engine, label, rtol=1e-4, atol=1e-6):
 
 
 def euro_main_path():
-    """Phase 4: the BS-multi European book; returns K2's launches in it and
-    its forward and differentiated runs, profiled at the end."""
+    """Phase 4: the BS-multi European book; returns K2's launches in it."""
     reset_k2_counts()
     fwd, products = euro_book(EURO_OPTIONS)
     check(fwd._kernel_active, "the European book is not on the kernel path")
@@ -1909,8 +1866,7 @@ def euro_main_path():
     np.testing.assert_allclose(jac_k, jac_e, rtol=1e-3, atol=1e-6)
     del engine
     torch.cuda.empty_cache()
-    return launches, {"bs-multi european forward": run_fwd,
-                      "bs-multi european differentiated": run_diff}
+    return launches
 
 
 def baskets():
@@ -2231,7 +2187,7 @@ def mixed_main_path(device, issue=None):
     one netting set per family differentiated on the kernel route (the
     differentiated wall: reverse mode, P = 9 > V = 8) and on the engine
     route, then forward batched against per product.  Returns the K2 row of
-    the book's shapes (its launches filled in) and the runs to profile."""
+    the book's shapes (its launches filled in)."""
     reset_k2_counts()
     t0 = time.perf_counter()
     fwd = mixed_controller()
@@ -2297,15 +2253,7 @@ def mixed_main_path(device, issue=None):
     # counts were read: these launches are not the main path's
     row = model_rung("bs_multi exact, mixed book", fwd, device, issue)
     row["launches"] = launches
-    # the batched and the per-product forward runs at scale 0.1 (the same
-    # families, paths and dates: the full book's device events took ~1-3
-    # minutes to read back, on the smoke's longest path)
-    small = mixed_controller(batch_products=False, scale=0.1)
-    small.run_simulation()  # cold: the request plan
-    batched = mixed_controller(scale=0.1)
-    batched.run_simulation()
-    return row, {"mixed book forward, batched, scale 0.1": batched.run_simulation,
-                 "mixed book forward, per product, scale 0.1": small.run_simulation}
+    return row
 
 
 def crr_american_put(s0, k, r, sigma, maturity, steps=2000):
@@ -2980,11 +2928,9 @@ def k1_loop_opcodes():
     return out
 
 
-def book_walls(out, launches: bool = True):
+def book_walls(out):
     """Warm walls of the CVA book (forward, and differentiated in reverse
-    mode) and of the mixed book (forward, and differentiated per family),
-    and with ``launches`` the CUDA kernels one warm forward run of each
-    launches (the profiler's device events, minutes to read back)."""
+    mode) and of the mixed book (forward, and differentiated per family)."""
     walls = {
         "cva book forward": warm_walls(cva_controller, 3),
         "cva book differentiated": warm_walls(lambda: cva_controller(differentiate=True), 2),
@@ -2995,15 +2941,6 @@ def book_walls(out, launches: bool = True):
     for name, w in walls.items():
         print(f"[wall] {name}: {', '.join(f'{x:.4f}' for x in w)} s")
     out["book walls"] = walls
-    if not launches:
-        return
-    for label, make in (("cva book forward", cva_controller),
-                        ("mixed book forward", mixed_controller)):
-        c = make()
-        c.run_simulation()
-        profile_run(label, c.run_simulation, host_ops=False)
-        del c
-        torch.cuda.empty_cache()
 
 
 def split_main(books_only: bool = False):
@@ -3011,16 +2948,15 @@ def split_main(books_only: bool = False):
     launch-only and wrapper times at the main paths' shapes (K1 on the Heston
     book, K2 on the north star and on the BS-multi book), K1's substep loop
     by opcode, the warm walls of the three books forward and differentiated
-    and of the CVA and mixed books, the north-star forward run's host time
-    by function and its device busy share, and the CVA and mixed books'
-    kernel launches, then one JSON line; ``books_only``: K1's opcodes and
+    and of the CVA and mixed books, and the north-star forward run's host
+    time by function, then one JSON line; ``books_only``: K1's opcodes and
     the CVA and mixed books' walls alone.  A copy of this file run from another
     checkout's root measures that tree the same way, so one call can run two
     trees in turns."""
     device, _ = card()
     out = {"K1 loop opcodes": k1_loop_opcodes()}
     if books_only:
-        book_walls(out, launches=False)
+        book_walls(out)
         print(json.dumps(out))
         return
     p32 = heston_params(device)
@@ -3055,7 +2991,6 @@ def split_main(books_only: bool = False):
     ns_fwd = north_star(NS_PATHS, False)
     ns_fwd.run_simulation()
     host_profile("north star forward", ns_fwd.run_simulation)
-    profile_run("north star forward", ns_fwd.run_simulation)  # last: it slows what follows
     print(json.dumps(out))
 
 
@@ -3142,7 +3077,7 @@ def main():
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
     # it; every K2 launch comes with one launch of its table prologue
-    rows["bs_multi exact"]["launches"], euro_runs = euro_main_path()
+    rows["bs_multi exact"]["launches"] = euro_main_path()
     check(k2_module.hybrid_table.launches == hybrid_paths.launches, "prologue launches differ")
     torch.cuda.empty_cache()
     k1_launches = heston_main_path(device)
@@ -3182,8 +3117,7 @@ def main():
     hessians = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hessians-only"],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        mixed_runs, hessian_launches = phases_beside_hessians(device, issue, rows, t_start,
-                                                              hessians)
+        hessian_launches = phases_beside_hessians(device, issue, rows, t_start, hessians)
     finally:
         if hessians.poll() is None:
             hessians.kill()
@@ -3211,15 +3145,9 @@ def main():
     check(k1_launches > 0 and all(r["launches"] > 0 for r in k2_rows + k3_rows),
           "a kernel of the main paths never launched")
 
-    # 8. the BS-multi and mixed books' device busy shares, after every wall
-    # they would slow
-    for label, run in euro_runs.items():
-        profile_run(label, run)
-    for label, run in mixed_runs.items():
-        profile_run(label, run, host_ops=False)
     print(f"[time] all phases done after {time.perf_counter() - t_start:.1f} s")
 
-    # 9. result lines
+    # 8. result lines
     print(smi)
     k1_row = {
         "name": "heston_qe_paths",
@@ -3479,9 +3407,8 @@ def phases_beside_hessians(device, issue, rows, t_start, hessians):
     """Phase 7b while the Hessian process runs: the mixed book, the product
     oracles, storage and the CVA book, each with its counts from 0 (their
     launches into ``rows``); then the Hessian process's output, printed, its
-    exit code checked.  Returns the mixed book's runs to profile and the
-    Hessian process's launches by row."""
-    rows["bs_multi exact, mixed book"], mixed_runs = mixed_main_path(device, issue)
+    exit code checked.  Returns the Hessian process's launches by row."""
+    rows["bs_multi exact, mixed book"] = mixed_main_path(device, issue)
     torch.cuda.empty_cache()
     print(f"[time] mixed book done after {time.perf_counter() - t_start:.1f} s")
     rows["bs exact"]["launches"] += product_oracles()
@@ -3494,7 +3421,7 @@ def phases_beside_hessians(device, issue, rows, t_start, hessians):
     print(out, end="")
     check(hessians.returncode == 0, f"the Hessian process failed (exit {hessians.returncode})")
     print(f"[time] Hessians done after {time.perf_counter() - t_start:.1f} s")
-    return mixed_runs, json.loads(out.strip().splitlines()[-1])["hessian_launches"]
+    return json.loads(out.strip().splitlines()[-1])["hessian_launches"]
 
 
 def hessian_main():

@@ -146,7 +146,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vjp, vmap
 
-from montecarlo_risk_engine_tpu_torch import rng
+from montecarlo_risk_engine_tpu_torch import rng, tracing
 from montecarlo_risk_engine_tpu_torch.api.batching import (
     EmittedTables,
     EuropeanEquityBatch,
@@ -199,6 +199,11 @@ _SCALAR_METRICS = {MetricType.PV, MetricType.CVA, MetricType.EEPE, MetricType.CE
 # Elements of the stacked [dates, N, deg] basis of one batched exposure fit:
 # a 1,000-path book fits all its dates at once, a 1e6-path book one at a time.
 _FIT_BATCH_ELEMENTS = 1 << 22
+
+
+def _family(batch) -> str:
+    """A family batch's name in spans: its class name without "Batch"."""
+    return type(batch).__name__.removesuffix("Batch")
 
 
 class SimulationController:
@@ -491,8 +496,9 @@ class SimulationController:
         self.spot_requests, self.numeraire_requests = spot, numeraire
 
     def _ensure_plan(self) -> None:
-        if self._plan is None:
-            self._decide_streaming()
+        with tracing.span("plan"):
+            if self._plan is None:
+                self._decide_streaming()
 
     def _build_plan(self, products) -> RequestPlan:
         plan = RequestPlan(self.model)
@@ -637,7 +643,11 @@ class SimulationController:
         """Frozen draws {phase: noise} of the differentiated kernel route: one
         kernel run and one noise recovery per phase, outside every tangent
         sweep (controller.py:1259-1271)."""
-        return {phase: self._kernel_ad_fns(n, phase)[1](params) for phase, n in self._phases()}
+        noise = {}
+        for phase, n in self._phases():
+            with tracing.span("kernel_noise", phase=phase):
+                noise[phase] = self._kernel_ad_fns(n, phase)[1](params)
+        return noise
 
     def _engine_kw(self, phase: int):
         """The engine's sampler keywords and test seams for one phase."""
@@ -657,35 +667,43 @@ class SimulationController:
             if self._kernel_active:
                 # Kernel-streaming AD (differentiated runs only): the
                 # reconstruction on the kernel's frozen draws emits the rows.
-                _, noise_fn, recon_rows = self._kernel_ad_fns(num_paths, phase, schedule)
-                noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
-                emissions = recon_rows(params, noise)
+                with tracing.span("paths", phase=phase, paths=num_paths, route="recon_rows"):
+                    _, noise_fn, recon_rows = self._kernel_ad_fns(num_paths, phase, schedule)
+                    noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
+                    emissions = recon_rows(params, noise)
+                    emissions = [e.to(real_dtype()) for e in emissions]
             else:
-                _, emissions = simulate_paths(
-                    self.model, params, self.simulation_scheme, self.simulation_timeline,
-                    num_paths, self.num_steps, phase, emit_schedule=schedule,
-                    collect_states=False, **self._engine_kw(phase))
-            emissions = [e.to(real_dtype()) for e in emissions]
-            tables = (EmittedTables(self._plan, schedule, emissions, params, n,
-                                    self.path_sharding) if self._batches else None)
-            return self._plan.resolve_from_emissions(schedule, emissions), tables
+                with tracing.span("paths", phase=phase, paths=num_paths, route="engine_rows"):
+                    _, emissions = simulate_paths(
+                        self.model, params, self.simulation_scheme, self.simulation_timeline,
+                        num_paths, self.num_steps, phase, emit_schedule=schedule,
+                        collect_states=False, **self._engine_kw(phase))
+                    emissions = [e.to(real_dtype()) for e in emissions]
+            with tracing.span("resolve", phase=phase):
+                tables = (EmittedTables(self._plan, schedule, emissions, params, n,
+                                        self.path_sharding) if self._batches else None)
+                return self._plan.resolve_from_emissions(schedule, emissions), tables
         if self._kernel_active:
             if self.differentiate:
-                _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
-                noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
-                states = recon_fn(params, noise)
+                with tracing.span("paths", phase=phase, paths=num_paths, route="recon"):
+                    _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
+                    noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
+                    states = recon_fn(params, noise)
             else:
-                states = sharded_kernel_paths(
-                    self.model, params, self.simulation_scheme, self.simulation_timeline,
-                    num_paths, self.num_steps, self.root_seed, phase, self.path_sharding,
-                ).to(real_dtype())
+                with tracing.span("paths", phase=phase, paths=num_paths, route="kernel"):
+                    states = sharded_kernel_paths(
+                        self.model, params, self.simulation_scheme, self.simulation_timeline,
+                        num_paths, self.num_steps, self.root_seed, phase, self.path_sharding,
+                    ).to(real_dtype())
         else:
-            states = simulate_paths(
-                self.model, params, self.simulation_scheme, self.simulation_timeline,
-                num_paths, self.num_steps, phase, **self._engine_kw(phase))
-        tables = (ObservableTables(self.model, params, states, n, self.path_sharding)
-                  if self._batches else None)
-        return self._plan.resolve_requests(params, states), tables
+            with tracing.span("paths", phase=phase, paths=num_paths, route="engine"):
+                states = simulate_paths(
+                    self.model, params, self.simulation_scheme, self.simulation_timeline,
+                    num_paths, self.num_steps, phase, **self._engine_kw(phase))
+        with tracing.span("resolve", phase=phase):
+            tables = (ObservableTables(self.model, params, states, n, self.path_sharding)
+                      if self._batches else None)
+            return self._plan.resolve_requests(params, states), tables
 
     # -- LSM regression (controller.py:399-477) -------------------------------------
 
@@ -1098,26 +1116,27 @@ class SimulationController:
         need_exp = self.risk_metrics.requires_exposure_profiles()
         num_ns = len(self.netting_sets)
         for batch in self._batches:
-            exp_ns = None
-            if isinstance(batch, ExerciseEquityBatch):
-                seg = batch.ns_segments(tables.device)
-                cfs_p, exp_p = batch.evaluate(tables, ctx)
-                if need_cfs:
-                    cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
-                if need_exp and exp_p is not None:
-                    exp_ns = torch.zeros((exp_p.shape[0], num_ns, exp_p.shape[2]),
-                                         dtype=exp_p.dtype, device=exp_p.device).index_add(
-                                             1, seg, exp_p)
-            else:
-                if need_cfs:
-                    cfs_acc = cfs_acc + batch.segmented_cashflows(tables, num_ns,
-                                                                  tables.num_paths)
-                if need_exp:
-                    exp_ns = batch.exposure_contributions(tables, ctx)
-            if exp_ns is not None:
-                for ns_idx in sorted(set(batch.ns_idx.tolist())):
-                    exp_acc[ns_idx] = (exp_ns[:, ns_idx] if exp_acc[ns_idx] is None
-                                       else exp_acc[ns_idx] + exp_ns[:, ns_idx])
+            with tracing.span("value", family=_family(batch), products=len(batch.products)):
+                exp_ns = None
+                if isinstance(batch, ExerciseEquityBatch):
+                    seg = batch.ns_segments(tables.device)
+                    cfs_p, exp_p = batch.evaluate(tables, ctx)
+                    if need_cfs:
+                        cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
+                    if need_exp and exp_p is not None:
+                        exp_ns = torch.zeros((exp_p.shape[0], num_ns, exp_p.shape[2]),
+                                             dtype=exp_p.dtype, device=exp_p.device).index_add(
+                                                 1, seg, exp_p)
+                else:
+                    if need_cfs:
+                        cfs_acc = cfs_acc + batch.segmented_cashflows(tables, num_ns,
+                                                                      tables.num_paths)
+                    if need_exp:
+                        exp_ns = batch.exposure_contributions(tables, ctx)
+                if exp_ns is not None:
+                    for ns_idx in sorted(set(batch.ns_idx.tolist())):
+                        exp_acc[ns_idx] = (exp_ns[:, ns_idx] if exp_acc[ns_idx] is None
+                                           else exp_acc[ns_idx] + exp_ns[:, ns_idx])
         return cfs_acc
 
     def _evaluate_products(self, params, resolved, fits, tables=None):
@@ -1135,45 +1154,56 @@ class SimulationController:
         for product in self.products:
             if product.product_id not in self._analytic_ids:
                 has_pathwise[self.product_to_netting_set_idx[product.product_id]] = True
-                continue
-            acc = analytic[self.product_to_netting_set_idx[product.product_id]]
-            for metric_idx, metric in enumerate(self.risk_metrics.metrics):
-                value = metric.evaluate_analytically(product=product, model=self.model,
-                                                     params=params)[0][0]
-                acc[metric_idx] = acc[metric_idx] + value
+        if self._analytic_ids:
+            with tracing.span("value", analytic="closed_form", products=len(self._analytic_ids)):
+                for product in self.products:
+                    if product.product_id not in self._analytic_ids:
+                        continue
+                    acc = analytic[self.product_to_netting_set_idx[product.product_id]]
+                    for metric_idx, metric in enumerate(self.risk_metrics.metrics):
+                        value = metric.evaluate_analytically(product=product, model=self.model,
+                                                             params=params)[0][0]
+                        acc[metric_idx] = acc[metric_idx] + value
         done = set(self._analytic_ids)
         if self._batches and tables is not None:
             cfs_acc = self._evaluate_batches(tables, cfs_acc, exp_acc)
             done.update(p.product_id for p in self.products if id(p) in self._batched_ids)
         for products, coeffs in fits["buckets"]:
-            cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
-            ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
-            seg = torch.as_tensor(ns_of, device=self.device)
-            cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
-            if exp_p is not None:
-                exp_ns = torch.zeros((num_ns,) + exp_p.shape[1:], dtype=exp_p.dtype,
-                                     device=self.device).index_add(0, seg, exp_p)
-                for ns_idx in sorted(set(ns_of)):
-                    exp_acc[ns_idx] = (exp_ns[ns_idx] if exp_acc[ns_idx] is None
-                                       else exp_acc[ns_idx] + exp_ns[ns_idx])
+            with tracing.span("value", exercise_bucket=type(products[0]).__name__,
+                              products=len(products)):
+                cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
+                ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
+                seg = torch.as_tensor(ns_of, device=self.device)
+                cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
+                if exp_p is not None:
+                    exp_ns = torch.zeros((num_ns,) + exp_p.shape[1:], dtype=exp_p.dtype,
+                                         device=self.device).index_add(0, seg, exp_p)
+                    for ns_idx in sorted(set(ns_of)):
+                        exp_acc[ns_idx] = (exp_ns[ns_idx] if exp_acc[ns_idx] is None
+                                           else exp_acc[ns_idx] + exp_ns[ns_idx])
             done.update(p.product_id for p in products)
         cfs_rows = list(cfs_acc.unbind(0))
         for prod_idx, product in enumerate(self.products):
             if product.product_id in done:
                 continue
             ns_idx = self.product_to_netting_set_idx[prod_idx]
-            cfs, exposures = self._evaluate_product(product, params, resolved,
-                                                    fits["exposure"].get(product.product_id))
-            cfs_rows[ns_idx] = cfs_rows[ns_idx] + cfs
-            if exposures is not None:
-                exp_acc[ns_idx] = exposures if exp_acc[ns_idx] is None else exp_acc[ns_idx] + exposures
+            with tracing.span("value", product=type(product).__name__, products=1):
+                cfs, exposures = self._evaluate_product(product, params, resolved,
+                                                        fits["exposure"].get(product.product_id))
+                cfs_rows[ns_idx] = cfs_rows[ns_idx] + cfs
+                if exposures is not None:
+                    exp_acc[ns_idx] = (exposures if exp_acc[ns_idx] is None
+                                       else exp_acc[ns_idx] + exposures)
         if self.risk_metrics.requires_exposure_profiles():
             zeros = torch.zeros((len(self.exposure_timeline), n), dtype=real_dtype(),
                                 device=self.device)
             exp_acc = [zeros if e is None else e for e in exp_acc]
-        return [self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved, analytic[i],
-                                           has_pathwise[i])
-                for i, ns in enumerate(self.netting_sets)]
+        nested = []
+        for i, ns in enumerate(self.netting_sets):
+            with tracing.span("netting", netting_set=i):
+                nested.append(self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved,
+                                                         analytic[i], has_pathwise[i]))
+        return nested
 
     def _exposure_ctx(self) -> Optional[ExposureContext]:
         """The batches' exposure context, None for a book without exposure
@@ -1192,15 +1222,21 @@ class SimulationController:
             ctx = self._exposure_ctx()
             for batch in self._batches:
                 if isinstance(batch, ExerciseEquityBatch):
-                    batch.fit(tables_pre, ctx)
+                    with tracing.span("fit", family=_family(batch), products=len(batch.products)):
+                        batch.fit(tables_pre, ctx)
                 elif ctx is not None:
-                    batch.fit_exposure(tables_pre, ctx)
+                    with tracing.span("fit", family=_family(batch), products=len(batch.products)):
+                        batch.fit_exposure(tables_pre, ctx)
         buckets, plain = self._exercise_scan_groups()
-        fits = {"buckets": [(b, self._fit_exercise_bucket(b, resolved_pre)) for b in buckets],
-                "exposure": {}}
+        fits = {"buckets": [], "exposure": {}}
+        for bucket in buckets:
+            with tracing.span("fit", exercise_bucket=type(bucket[0]).__name__,
+                              products=len(bucket)):
+                fits["buckets"].append((bucket, self._fit_exercise_bucket(bucket, resolved_pre)))
         for product in plain:
-            fits["exposure"][product.product_id] = self._perform_regression_for_product(
-                product, params, resolved_pre)
+            with tracing.span("fit", product=type(product).__name__, products=1):
+                fits["exposure"][product.product_id] = self._perform_regression_for_product(
+                    product, params, resolved_pre)
         return fits
 
     def _compute(self, params, kernel_noise=None):
@@ -1220,7 +1256,8 @@ class SimulationController:
             if self._simulates():
                 resolved, tables = self._simulate_and_resolve(
                     params, self.num_paths_mainsim, rng.PHASE_MAINSIM, kernel_noise)
-            return self._evaluate_products(params, resolved, fits, tables)
+            with tracing.span("evaluate", products=len(self.products)):
+                return self._evaluate_products(params, resolved, fits, tables)
         finally:
             for batch in self._batches:
                 batch.release()
@@ -1265,9 +1302,13 @@ class SimulationController:
             values, errors = pair(params)
             n, chunk = values.shape[0], self.grad_chunk_size
             eye = torch.eye(n, dtype=values.dtype, device=values.device)
-            rows = [torch.stack(torch.autograd.grad(
-                values, params, grad_outputs=eye[start:start + chunk], is_grads_batched=True,
-                retain_graph=start + chunk < n)) for start in range(0, n, chunk)]
+            rows = []
+            for start in range(0, n, chunk):
+                cotangents = eye[start:start + chunk]
+                with tracing.span("sweep", tangents=cotangents.shape[0]):
+                    rows.append(torch.stack(torch.autograd.grad(
+                        values, params, grad_outputs=cotangents, is_grads_batched=True,
+                        retain_graph=start + chunk < n)))
             return values.detach(), errors.detach(), torch.cat(rows, dim=1)
         return self._jacfwd(pair, params)
 
@@ -1284,7 +1325,8 @@ class SimulationController:
         rows, values, errors = [], None, None
         for start in range(0, n_params, self.grad_chunk_size):
             basis = eye[start:start + self.grad_chunk_size]  # [c, P]
-            values_c, errors_c, rows_c = vmap(sweep)(tuple(basis.unbind(1)))
+            with tracing.span("sweep", tangents=basis.shape[0]):
+                values_c, errors_c, rows_c = vmap(sweep)(tuple(basis.unbind(1)))
             values, errors = values_c[0], errors_c[0]
             rows.append(rows_c)
         return values, errors, torch.cat(rows)
@@ -1304,16 +1346,20 @@ class SimulationController:
         if sharding is not None and sharding.rank != 0:
             cotangents = torch.zeros_like(cotangents)
         chunk = self.grad_chunk_size
-        rows = [torch.stack(vmap(vjp_fn)(cotangents[start:start + chunk])[0])
-                for start in range(0, cotangents.shape[0], chunk)]
+        rows = []
+        for start in range(0, cotangents.shape[0], chunk):
+            block = cotangents[start:start + chunk]
+            with tracing.span("sweep", tangents=block.shape[0]):
+                rows.append(torch.stack(vmap(vjp_fn)(block)[0]))
         return values, errors, sum_over_ranks(torch.cat(rows, dim=1), sharding)
 
     def _hessian_row(self, jac_fn, params, j: int):
         """Row j of the Hessian, [P, V]: d jac[i] / d p_j for every i, the
         forward tangent of ``jac_fn`` in direction e_j (controller.py:1652-1671)."""
-        tangent = tuple(torch.zeros_like(p) for p in params)
-        tangent[j].fill_(1.0)
-        return jvp(jac_fn, (params,), (tangent,))[1].detach()
+        with tracing.span("hessian_row", row=j):
+            tangent = tuple(torch.zeros_like(p) for p in params)
+            tangent[j].fill_(1.0)
+            return jvp(jac_fn, (params,), (tangent,))[1].detach()
 
     def _hessian(self, params, kernel_noise=None):
         """[P, P, V] Hessian, H[i, j] = d jac[i] / d p_j, one row (one outer
@@ -1331,16 +1377,28 @@ class SimulationController:
         ``torch.profiler`` (host ops, and the card's kernels on a CUDA
         device) and the trace is written there as TensorBoard's
         ``*.pt.trace.json`` (JAX controller.py:2240-2251, a
-        ``jax.profiler.trace``).  Tracing changes no value."""
+        ``jax.profiler.trace``), with a range for each of the run's spans
+        (tracing.py), which are on for that run.  Tracing changes no value."""
         if profile_dir is None:
-            return self._run_simulation_impl()
+            with tracing.span("run", route="kernel" if self._kernel_active else "engine",
+                              differentiate=int(self.differentiate)):
+                return self._run_simulation_impl()
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
-            return self._run_simulation_impl()
+        was_on, was_annotating = tracing.enabled(), tracing.annotating()
+        tracing.enable(annotate=True)
+        try:
+            with profile(activities=activities,
+                         on_trace_ready=tensorboard_trace_handler(profile_dir)):
+                return self.run_simulation()
+        finally:
+            if was_on:
+                tracing.enable(annotate=was_annotating)
+            else:
+                tracing.disable()
 
     def _run_simulation_impl(self) -> SimulationResults:
         t0 = time.perf_counter()
@@ -1348,47 +1406,62 @@ class SimulationController:
         params = self.model.initial_params(device=self.device, dtype=real_dtype())
 
         t1 = time.perf_counter()
-        jac_np = hess_np = None
+        jac = hess_np = None
         if self.differentiate:
             # The frozen kernel draws: one kernel run and one noise recovery
             # per phase, shared by the jacobian and every Hessian row.
             kernel_noise = self._kernel_noise_of(params) if self._kernel_active else None
             self._resolve_grad_mode(params)
-            values, errors, jac = self._jacobian(params, kernel_noise)
-            jac_np = jac.detach().cpu().numpy()  # [P, V]
+            with tracing.span("jacobian", mode=self._grad_mode_resolved):
+                values, errors, jac = self._jacobian(params, kernel_noise)
         else:
             with torch.no_grad():
                 values, errors = self._flatten(self._compute(params))
-        values_np = values.detach().cpu().numpy()
-        errors_np = errors.detach().cpu().numpy()
+        with tracing.span("to_host"):
+            jac_np = None if jac is None else jac.detach().cpu().numpy()  # [P, V]
+            values_np = values.detach().cpu().numpy()
+            errors_np = errors.detach().cpu().numpy()
         t2 = time.perf_counter()
         if self.differentiate and self.requires_higher_order_derivatives:
-            hess_np = self._hessian(params, kernel_noise).cpu().numpy()  # [P, P, V]
+            hess = self._hessian(params, kernel_noise)
+            with tracing.span("to_host"):
+                hess_np = hess.cpu().numpy()  # [P, P, V]
         t3 = time.perf_counter()
 
-        results, derivatives, second_derivatives = [], [], []
-        flat_idx = 0
-        n_params = len(params)
-        for ns_spec in self._result_spec():
-            ns_results, ns_derivs, ns_hess = [], [], []
-            for n_evals in ns_spec:
-                evals, devals, hevals = [], [], []
-                for _ in range(n_evals):
-                    evals.append((values_np[flat_idx], errors_np[flat_idx]))
-                    if jac_np is not None:
-                        devals.append(tuple(jac_np[p, flat_idx] for p in range(n_params)))
-                    if hess_np is not None:
-                        hevals.append([[hess_np[p1, p2, flat_idx] for p2 in range(n_params)]
-                                       for p1 in range(n_params)])
-                    flat_idx += 1
-                ns_results.append(evals)
-                ns_derivs.append(devals)
-                ns_hess.append(hevals)
-            results.append(ns_results)
-            derivatives.append(ns_derivs)
-            second_derivatives.append(ns_hess)
+        with tracing.span("results"):
+            results, derivatives, second_derivatives = [], [], []
+            flat_idx = 0
+            n_params = len(params)
+            for ns_spec in self._result_spec():
+                ns_results, ns_derivs, ns_hess = [], [], []
+                for n_evals in ns_spec:
+                    evals, devals, hevals = [], [], []
+                    for _ in range(n_evals):
+                        evals.append((values_np[flat_idx], errors_np[flat_idx]))
+                        if jac_np is not None:
+                            devals.append(tuple(jac_np[p, flat_idx] for p in range(n_params)))
+                        if hess_np is not None:
+                            hevals.append([[hess_np[p1, p2, flat_idx] for p2 in range(n_params)]
+                                           for p1 in range(n_params)])
+                        flat_idx += 1
+                    ns_results.append(evals)
+                    ns_derivs.append(devals)
+                    ns_hess.append(hevals)
+                results.append(ns_results)
+                derivatives.append(ns_derivs)
+                second_derivatives.append(ns_hess)
+            t4 = time.perf_counter()
+            out = SimulationResults(
+                results,
+                derivatives if jac_np is not None else [],
+                second_derivatives if hess_np is not None else [],
+                netting_set_names=self._make_unique_names(
+                    [ns.get_name() for ns in self.netting_sets]),
+                metric_names=self._make_unique_names(
+                    [m.get_name() for m in self.risk_metrics.metrics]),
+                model_param_names=self.model.get_model_param_names(),
+            )
 
-        t4 = time.perf_counter()
         logger.info(
             "Simulation completed for %d netting set(s) and %d product(s) on %s "
             "(%s paths, %s): preprocessing=%.6fs pipeline=%.6fs hessians=%.6fs "
@@ -1399,12 +1472,4 @@ class SimulationController:
              "streaming" if self._emission_schedule is not None else "plane"),
             t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0,
         )
-
-        return SimulationResults(
-            results,
-            derivatives if jac_np is not None else [],
-            second_derivatives if hess_np is not None else [],
-            netting_set_names=self._make_unique_names([ns.get_name() for ns in self.netting_sets]),
-            metric_names=self._make_unique_names([m.get_name() for m in self.risk_metrics.metrics]),
-            model_param_names=self.model.get_model_param_names(),
-        )
+        return out

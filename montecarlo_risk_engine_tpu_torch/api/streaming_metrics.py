@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from montecarlo_risk_engine_tpu_torch import rng
+from montecarlo_risk_engine_tpu_torch import rng, tracing
 from montecarlo_risk_engine_tpu_torch.api.batching import ExerciseEquityBatch
 from montecarlo_risk_engine_tpu_torch.config import real_dtype
 from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
@@ -362,17 +362,18 @@ class MetricStreamExecutor:
         """The per-point consumer over the pre-simulation coefficients."""
 
         def update(point_idx, ys, state, aux):
-            exp_j = int(self.exp_idx_tab[point_idx])
-            if exp_j < 0:
+            with tracing.span("fold", point=point_idx):
+                exp_j = int(self.exp_idx_tab[point_idx])
+                if exp_j < 0:
+                    return aux
+                netted = self._netted_row(ys, point_idx, exp_j, coeffs_all)
+                slot = int(self.stash_src_tab[exp_j])
+                if self.n_slots and slot >= 0:
+                    aux["stash"][slot] = netted
+                m_i = int(self.metric_of_exp[exp_j])
+                if m_i >= 0:
+                    aux = self._on_metric(aux, netted, m_i, ys, point_idx)
                 return aux
-            netted = self._netted_row(ys, point_idx, exp_j, coeffs_all)
-            slot = int(self.stash_src_tab[exp_j])
-            if self.n_slots and slot >= 0:
-                aux["stash"][slot] = netted
-            m_i = int(self.metric_of_exp[exp_j])
-            if m_i >= 0:
-                aux = self._on_metric(aux, netted, m_i, ys, point_idx)
-            return aux
 
         return update
 
@@ -463,11 +464,13 @@ class MetricStreamExecutor:
         from montecarlo_risk_engine_tpu_torch.engine.engine import simulate_paths
 
         c = self.c
-        aux = simulate_paths(
-            c.model, params, c.simulation_scheme, c.simulation_timeline, c.num_paths_mainsim,
-            c.num_steps, rng.PHASE_MAINSIM, root_seed=c.root_seed, noise_source=noise_source,
-            antithetic=c.antithetic, sampler=c.sampler, qmc_bridge=c.qmc_bridge,
-            remat=c.remat_paths, emit_schedule=self.schedule, collect_states=False,
-            fold=(self._init_aux(), self.fold_update(self.gather_coeffs(fits))),
-            qmc_shift=qmc_shift, device=c.device, path_sharding=self.sharding)
-        return self.assemble(aux)
+        with tracing.span("stream", paths=c.num_paths_mainsim):
+            aux = simulate_paths(
+                c.model, params, c.simulation_scheme, c.simulation_timeline, c.num_paths_mainsim,
+                c.num_steps, rng.PHASE_MAINSIM, root_seed=c.root_seed, noise_source=noise_source,
+                antithetic=c.antithetic, sampler=c.sampler, qmc_bridge=c.qmc_bridge,
+                remat=c.remat_paths, emit_schedule=self.schedule, collect_states=False,
+                fold=(self._init_aux(), self.fold_update(self.gather_coeffs(fits))),
+                qmc_shift=qmc_shift, device=c.device, path_sharding=self.sharding)
+        with tracing.span("assemble"):
+            return self.assemble(aux)

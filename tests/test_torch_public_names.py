@@ -123,6 +123,11 @@ def test_run_simulation_profile_dir_writes_a_trace_and_changes_nothing(tmp_path)
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the run's spans are on for that run, each a range of its name
+    names = {e.get("name") for e in events}
+    assert {"run", "value"} <= names
+    from montecarlo_risk_engine_tpu_torch import tracing
+    assert not tracing.enabled()
     for metric in ("pv", "epe"):
         assert np.array_equal(traced.get_results("opt", metric), plain.get_results("opt", metric))
         assert np.array_equal(traced.get_mc_error("opt", metric),

@@ -1,0 +1,139 @@
+"""The port's spans (montecarlo_risk_engine_tpu_torch/tracing.py): off, one
+shared no-op that records nothing; on, nested records whose run ids count
+the roots; the span tree of the benchmark's north-star greeks book, its
+streaming forward route and the BS-multi PV book at a few hundred paths,
+name by name; values bit for bit the same with tracing on and off; and the
+spans on the clock that ``torch.profiler`` stamps its events with."""
+
+import sys
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import montecarlo_risk_engine_tpu_torch as mt
+from montecarlo_risk_engine_tpu_torch import tracing
+
+torch.set_num_threads(1)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from riskbench import book, spec  # noqa: E402
+
+PATHS = 256
+SEED = 2 ** 31 + 4099
+
+# Spans a run, by name (the books of riskbench/configs at PATHS paths).
+PV_BOOK = {"run": 1, "plan": 1, "paths": 1, "resolve": 1, "evaluate": 1, "value": 1,
+           "netting": 1, "to_host": 1, "results": 1}
+GREEKS_BOOK = {"run": 1, "plan": 1, "kernel_noise": 2, "jacobian": 1, "sweep": 2, "paths": 4,
+               "resolve": 4, "fit": 4, "evaluate": 2, "value": 4, "netting": 2, "to_host": 1,
+               "results": 1}
+STREAM_BOOK = {"run": 1, "plan": 1, "paths": 1, "resolve": 1, "fit": 2, "stream": 1, "fold": 57,
+               "assemble": 1, "to_host": 1, "results": 1}
+
+
+@pytest.fixture(autouse=True)
+def tracing_off():
+    tracing.disable()
+    yield
+    tracing.disable()
+
+
+def controller(workload):
+    cell = spec.load_cell(workload)
+    traffic = {**cell.traffic, "num_paths": PATHS,
+               "num_paths_presim": PATHS if cell.traffic["num_paths_presim"] else 0}
+    return book.build_controller(mt, cell.config, traffic, SEED, "cpu"), traffic
+
+
+def answers(c, traffic):
+    out = book.read_results(c.run_simulation(), SEED, bool(traffic["differentiate"]))
+    return [out.values, out.errors] + ([out.jac] if out.jac is not None else [])
+
+
+def runs_of(spans):
+    by_run = {}
+    for s in spans:
+        by_run.setdefault(s.run, []).append(s)
+    return list(by_run.values())
+
+
+def test_off_is_one_shared_noop_that_records_nothing():
+    a, b = tracing.span("run"), tracing.span("value", family="EuropeanEquity", products=3)
+    assert a is b and not tracing.enabled()
+    with a:
+        with b:
+            pass
+    assert tracing.take() == []
+
+
+def test_on_nests_and_counts_runs():
+    tracing.enable()
+    for _ in range(2):
+        with tracing.span("run", route="kernel"):
+            with tracing.span("paths", phase=43, paths=8):
+                with tracing.span("resolve", phase=43):
+                    pass
+            with tracing.span("to_host"):
+                pass
+    spans = tracing.take()
+    assert tracing.take() == []
+    assert [s.name for s in spans] == ["run", "paths", "resolve", "to_host"] * 2
+    assert [s.parent for s in spans] == [-1, 0, 1, 0, -1, 4, 5, 4]
+    assert spans[4].run == spans[0].run + 1 and len({s.run for s in spans[:4]}) == 1
+    assert spans[1].attrs == {"phase": 43, "paths": 8}
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+@pytest.mark.parametrize("workload,expected,parents", [
+    ("bs_multi_euro_book.pv_1m", PV_BOOK,
+     {("paths", "run"), ("value", "evaluate"), ("netting", "evaluate"), ("to_host", "run")}),
+    ("north_star_xva.greeks_1m", GREEKS_BOOK,
+     {("kernel_noise", "run"), ("sweep", "jacobian"), ("paths", "sweep"), ("fit", "sweep"),
+      ("value", "evaluate"), ("netting", "evaluate"), ("evaluate", "sweep")}),
+    ("north_star_xva.fwd_16m", STREAM_BOOK,
+     {("paths", "run"), ("fit", "run"), ("fold", "stream"), ("stream", "run"),
+      ("assemble", "run")}),
+], ids=["pv", "greeks", "streaming_forward"])
+def test_span_tree_and_values_on_and_off(workload, expected, parents):
+    c, traffic = controller(workload)
+    plain = answers(c, traffic)
+    tracing.enable()
+    traced = answers(c, traffic)
+    if workload != "north_star_xva.greeks_1m":  # the counts repeat run after run
+        answers(c, traffic)
+    spans = tracing.take()
+    for run in runs_of(spans):
+        assert run[0].name == "run" and run[0].parent == -1
+        assert dict(Counter(s.name for s in run)) == expected
+        assert {(s.name, spans[s.parent].name) for s in run if s.parent >= 0} >= parents
+    assert len(runs_of(spans)) == (1 if workload == "north_star_xva.greeks_1m" else 2)
+    for a, b in zip(plain, traced):
+        assert np.array_equal(a, b)
+
+
+def test_spans_share_the_profilers_clock():
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from riskbench import trace
+
+    for _ in range(2):  # the first profile warms the profiler up
+        tracing.enable()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(3):
+                with tracing.span("run"):
+                    with record_function("inside"):
+                        torch.ones(64).sum()
+        spans = tracing.take()
+        tracing.disable()
+    inside = sorted((trace._ns(ev, "start"), trace._ns(ev, "start") + trace._ns(ev, "duration"))
+                    for ev in prof.profiler.kineto_results.events() if ev.name() == "inside")
+    assert len(inside) == len(spans) == 3
+    for (start, end), s in zip(inside, spans):
+        assert s.start_ns - 50_000 <= start and end <= s.end_ns + 50_000, (start, end, s)
