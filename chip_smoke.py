@@ -100,6 +100,13 @@ Phases:
      set_sync_debug_mode("error"): bitwise the whole launch's strided
      columns and the plain version at the same offset and stride
      (``strided_launches``);
+  3f. the forward-mode reconstruction kernel (csrc/recon_tangents.cu) at
+     the north-star shapes on the main phase's frozen draws: its builds
+     gated on ptxas (no spill), the primal and both sweeps' tangent planes
+     bitwise its plain version's, call / launch-only / wrapper beside the
+     byte bound; then a differentiated north-star run with the route on and
+     off: its launches counted by tangent count (4 primal, 2 of 8 and 2 of
+     3 tangents), values and jacobian within 1e-10 (``recon_phase``);
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
@@ -193,9 +200,11 @@ the same way (parent and change in turns, in one call).
 Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
-    python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only]
+    python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only
+                           | --recon-only]
 
-(``--examples-only``: phase 7d alone, after building K1 and K2.)
+(``--examples-only``: phase 7d alone, after building K1 and K2;
+``--recon-only``: phase 3f alone.)
 
 (``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
 rank of phase 6b, started by the smoke itself.)
@@ -214,6 +223,7 @@ import time
 
 import numpy as np
 import torch
+from torch.func import jvp, vmap
 
 import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
@@ -221,6 +231,7 @@ from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 from montecarlo_risk_engine_tpu_torch.ops import heston_ladder as k3_module
 from montecarlo_risk_engine_tpu_torch.ops import heston_qe as k1_module
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
+from montecarlo_risk_engine_tpu_torch.ops import recon_tangents
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
@@ -2819,7 +2830,8 @@ SINCOS_STACK_BYTES = 32
 KERNELS = {"heston_qe": ["heston_qe_kernel<0,0>", "heston_qe_kernel<0,1>",
                          "heston_qe_kernel<1,0>", "heston_qe_kernel<1,1>"],
            "hybrid_paths": ["hybrid_kernel<0>", "hybrid_kernel<1>", "table_kernel"],
-           "heston_ladder": [f"heston_ladder_kernel<{i}>" for i in range(len(RUNGS))]}
+           "heston_ladder": [f"heston_ladder_kernel<{i}>" for i in range(len(RUNGS))],
+           "recon_tangents": ["recon_kernel"]}
 
 
 def local_memory_gate(name, built):
@@ -2835,6 +2847,111 @@ def local_memory_gate(name, built):
         stack, stores, loads = (int(x) for x in m.groups())
         check(stores == 0 and loads == 0 and stack <= SINCOS_STACK_BYTES,
               f"{built.path.name} {kernel} uses local memory: {frame}")
+
+
+# The north star's sweeps: P = 11 tangents, 8 a sweep.
+RECON_SWEEPS = ((0, 8), (8, 11))
+
+
+def recon_phase():
+    """Phase 3f: the forward-mode reconstruction kernel
+    (csrc/recon_tangents.cu) at the north-star shapes ([57, 1e6, 5]) on the
+    main phase's frozen draws.  Its builds for the primal and the two sweeps
+    (ptxas: no spill); the primal and each sweep's tangent planes bitwise its
+    plain version's; call, launch-only and wrapper times beside the byte
+    bound (planes written, draws read, at 3.35 TB/s); then one warm
+    differentiated north-star run with its launches counted from 0 by
+    tangent count (two phases x two sweeps, a primal and a tangent launch
+    each: 4 primal, 2 of 8 and 2 of 3 tangents) against the same run with
+    the route off (the torch rebuild, no launch), values and jacobian to
+    1e-10 relative.  Each kernel row's launches are its own build's count
+    in that run.  Returns the kernels' JSON rows."""
+    t0 = time.perf_counter()
+    device, scheme = torch.device("cuda"), mt.SimulationScheme.EULER
+    c = north_star(NS_PATHS, True)
+    params = c.model.initial_params(device=device, dtype=torch.float64)
+    z = c._kernel_noise_of(params)[mt.rng.PHASE_MAINSIM]
+    layout, steps, times = recon_tangents.model_plan(c.model, scheme, c.simulation_timeline,
+                                                     c.num_steps)
+    steps = torch.from_numpy(steps).to(device)
+    times = torch.tensor(times, dtype=torch.float64, device=device)
+    builds = recon_tangents.load_builds(layout, [0, *(hi - lo for lo, hi in RECON_SWEEPS)])
+    for (name, extra), built in builds.items():
+        how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
+        print(f"[build] {name} {' '.join(extra)}: {how} -> {built.path.name}")
+        for kernel, frame in ptxas_frames(built.log).items():
+            print(f"  {kernel}: {frame}")
+        local_memory_gate(name, built)
+    pvec = torch.stack(params)
+    psi_of = lambda p: recon_tangents.psi_columns(c.model, scheme, tuple(p.unbind(0)), times)
+    psi, chol = psi_of(pvec), c.model.noise_transform(params, scheme)
+    eye = torch.eye(len(params), dtype=torch.float64, device=device)
+    n_pts, n_dense = layout.num_coarse, steps.shape[0]
+    print(f"[kernel] recon_tangents at {NS_PATHS} paths x {n_dense} dense steps -> "
+          f"{n_pts} points x D={layout.state_dim}, roles {layout.roles}")
+    rows = {}
+    for lo, hi in ((0, 0), *RECON_SWEEPS):
+        basis = eye[lo:hi] if hi else None
+        psi_t = vmap(lambda t: jvp(psi_of, (pvec,), (t,))[1])(basis) if hi else None
+        args = (layout, steps, z, pvec, psi, chol, basis, psi_t)
+        out, ref = recon_tangents.recon_planes(*args), recon_tangents.recon_planes_reference(*args)
+        torch.cuda.synchronize()
+        err, same = float((out - ref).abs().max()), torch.equal(out, ref)
+        planes = max(hi - lo, 1)
+        label = f"c={hi - lo}" if hi else "primal"
+        del out, ref
+        check(same, f"recon_tangents[{label}]: not bitwise its plain version")
+        run = lambda: recon_tangents.recon_planes(*args)
+        plain_ms = median_ms(lambda: recon_tangents.recon_planes_reference(*args), reps=3)
+        nbytes = (planes * n_pts * layout.state_dim + n_dense * len(layout.roles)) * NS_PATHS * 8
+        t_bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, launch_ms, wrapper_ms = call_split(f"recon_tangents {label}", recon_tangents, run,
+                                               t_bound)
+        print(f"    bitwise {same}, {nbytes / 1e9:.2f} GB: call {ms:.4f} ms, launch "
+              f"{launch_ms:.4f} ms ({t_bound / launch_ms:.1%} of the byte bound "
+              f"{t_bound:.4f} ms), plain {plain_ms:.3f} ms")
+        rows[hi - lo] = {"name": f"recon_tangents[{label}]", "route": "cuda",
+                         "source": "montecarlo_risk_engine_tpu_torch/csrc/recon_tangents.cu",
+                         "replaces": None, "launches": 0, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": t_bound, "bound_by": "bytes",
+                         "library_ms": None, "launch_ms": launch_ms, "wrapper_ms": wrapper_ms}
+        torch.cuda.empty_cache()
+    del z, c
+    torch.cuda.empty_cache()
+
+    def run_book(on):
+        """(wall, values, jacobian, launches by tangent count) of a warm run."""
+        book = north_star(NS_PATHS, True)
+        if not on:
+            book._recon_kernel_engages = lambda: False
+        book.run_simulation()
+        out = []
+        recon_tangents.recon_planes.launches.clear()
+        wall = wall_seconds(lambda: out.append(book.run_simulation()))
+        launches = dict(recon_tangents.recon_planes.launches)
+        metrics = (f"cva[{CP}]", "epe", "pfe[0.95]")
+        values = np.concatenate([np.ravel(v[0]) for v in ns_values(out[0]).values()])
+        jac = np.concatenate([np.ravel(ns_jacobian(out[0], m)) for m in metrics])
+        return wall, torch.from_numpy(values), torch.from_numpy(jac), launches
+
+    wall_on, values_on, jac_on, launches = run_book(True)
+    wall_off, values_off, jac_off, launches_off = run_book(False)
+    want = {0: 4, **{hi - lo: 2 for lo, hi in RECON_SWEEPS}}
+    check(launches == want, f"recon_tangents launched {launches} a run by tangent count, "
+          f"not {want}")
+    check(not launches_off, f"recon_tangents launched {launches_off} with the route off")
+    gap_v = float(((values_on - values_off).abs() / values_off.abs().clamp(min=1e-300)).max())
+    gap_j = float((jac_on - jac_off).abs().max() / jac_off.abs().max())
+    print(f"[recon route] north star differentiated at {NS_PATHS} + {NS_PATHS} paths: wall "
+          f"{wall_on:.3f} s with the kernel, {wall_off:.3f} s rebuilt in torch; launches a run "
+          f"by tangent count {launches}; values rel gap {gap_v:.3e}, jacobian gap {gap_j:.3e} "
+          f"(of max)")
+    check(gap_v <= 1e-10 and gap_j <= 1e-10, "the kernel route's values or jacobian moved")
+    for count, row in rows.items():
+        row["launches"] = launches[count]
+    torch.cuda.empty_cache()
+    print(f"[time] recon phase: {time.perf_counter() - t0:.1f} s")
+    return list(rows.values())
 
 
 def reset_k2_counts():
@@ -3073,6 +3190,10 @@ def main():
     # 3e. K1 and K2 at a path offset and stride (a rank of a sharded run)
     strided_launches(params32, (blocks, chol, ns_params32, ns_dense, NS_PATHS, 1))
 
+    # 3f. the forward-mode reconstruction kernel at the north-star shapes,
+    # then its route in a differentiated north-star run, on and off
+    recon_rows = recon_phase()
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
@@ -3164,7 +3285,7 @@ def main():
         "launch_ms": k1_launch_ms,
         "wrapper_ms": k1_wrapper_ms,
     }
-    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows}))
+    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3456,6 +3577,9 @@ if __name__ == "__main__":
         hessian_main()
     elif "--examples-only" in sys.argv[1:]:
         examples_main()
+    elif "--recon-only" in sys.argv[1:]:
+        card()
+        print(json.dumps({"kernels": recon_phase()}))
     elif "--shard-rank" in sys.argv[1:]:
         shard_rank_main(sys.argv[1:])
     else:

@@ -69,9 +69,14 @@ of two routes:
     Hull-White and Schwartz-2F models and of ModelConfig books.  Differentiated runs rebuild
     the paths from the kernel's frozen draws under AD (ops/paths_ad.py):
     emitted draws for Heston QE, draws recovered from the states for the
-    invertible hybrid steps.  The kernel's dispatcher, not the controller,
-    looks at the device: CUDA launches the kernel, the CPU runs its plain
-    version.
+    invertible hybrid steps.  In forward mode without Hessians, in float64,
+    on the plane route with recovered draws and Vasicek, Black-Scholes and
+    CIR++ Euler blocks only, the rebuild and its tangents are one kernel launch
+    per phase and sweep (ops/recon_tangents.py, span route
+    ``recon_kernel``); every other differentiated kernel book keeps the
+    rebuild in torch ops (``recon``).  The kernel's dispatcher, not the
+    controller, looks at the device: CUDA launches the kernel, the CPU runs
+    its plain version.
   * otherwise the engine (engine/engine.py), on any device.
 
 ``use_kernel``: "auto" takes the kernel whenever eligible, True requires it
@@ -171,6 +176,7 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
+from montecarlo_risk_engine_tpu_torch.ops import recon_tangents
 from montecarlo_risk_engine_tpu_torch.ops.path_shard import (
     sharded_kernel_paths,
     sharded_kernel_paths_with_noise,
@@ -639,6 +645,21 @@ class SimulationController:
         return recovered_noise_fns(self.model, scheme, self.simulation_timeline,
                                    n, self.num_steps, dense_forward, emit_schedule)
 
+    def _recon_kernel_engages(self) -> bool:
+        """Whether the differentiated kernel route's plane is rebuilt by the
+        forward-mode reconstruction kernel (ops/recon_tangents.py): forward
+        mode, no Hessian, the float64 working dtype (the kernel's), draws
+        recovered from the states (not emitted) and Vasicek, Black-Scholes
+        and CIR++ Euler blocks only.  The plane route (no emission schedule)
+        is the caller's branch; a path sharding is no reason to fall back."""
+        scheme = self.simulation_scheme
+        return (getattr(self, "_grad_mode_resolved", None) == "fwd"
+                and not self.requires_higher_order_derivatives
+                and real_dtype() == torch.float64
+                and self.model.kernel_ad_mode(scheme) == "invert"
+                and recon_tangents.supported(
+                    [b for _, _, b in recon_tangents.model_blocks(self.model, scheme)]))
+
     def _kernel_noise_of(self, params):
         """Frozen draws {phase: noise} of the differentiated kernel route: one
         kernel run and one noise recovery per phase, outside every tangent
@@ -685,8 +706,13 @@ class SimulationController:
                 return self._plan.resolve_from_emissions(schedule, emissions), tables
         if self._kernel_active:
             if self.differentiate:
-                with tracing.span("paths", phase=phase, paths=num_paths, route="recon"):
+                route = "recon_kernel" if self._recon_kernel_engages() else "recon"
+                with tracing.span("paths", phase=phase, paths=num_paths, route=route):
                     _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
+                    if route == "recon_kernel":
+                        recon_fn = recon_tangents.reconstruction(
+                            self.model, self.simulation_scheme, self.simulation_timeline,
+                            self.num_steps, self.grad_chunk_size)
                     noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
                     states = recon_fn(params, noise)
             else:

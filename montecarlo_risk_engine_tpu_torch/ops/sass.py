@@ -60,7 +60,8 @@ def ptxas_frames(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = m.group(1)
-            name = re.search(r"(hybrid_kernel|table_kernel|heston_qe_kernel|heston_ladder_kernel)(I\w*?EEv)?", kernel)
+            name = re.search(r"(hybrid_kernel|table_kernel|heston_qe_kernel|heston_ladder_kernel|"
+                             r"recon_kernel)(I\w*?EEv)?", kernel)
             if name:  # hybrid_kernelILi4ELb1EEv... -> hybrid_kernel<4,1>
                 args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
                 kernel = name.group(1) + (f"<{','.join(args)}>" if args else "")

@@ -4,7 +4,9 @@ the JAX package's (ops/pallas_paths_ad.py) on the same dense engine states.
 Both packages take the JAX engine's f64 dense trajectory as the kernel
 stand-in (the pattern of tests/test_pallas_ad.py:139-183), recover the
 standard normals, rebuild the coarse states and differentiate a weighted
-summary in forward mode.
+summary in forward mode.  The port rebuilds them twice: in torch ops and by
+the forward-mode reconstruction kernel's route (ops/recon_tangents.py, its
+plain version on the CPU).
 
 Where CIR++ y lands on its 1e-12 floor the two inversions differ by design
 (models/cirpp.py invert_noise): the JAX residual puts the rebuilt pre-floor
@@ -27,7 +29,7 @@ from montecarlo_risk_engine_tpu.engine.engine import simulate_paths as jax_simul
 from montecarlo_risk_engine_tpu.ops import pallas_paths_ad as jax_ad
 from montecarlo_risk_engine_tpu_torch import SimulationScheme, params_from_numpy
 from montecarlo_risk_engine_tpu_torch.models.cirpp import CIRPPModel
-from montecarlo_risk_engine_tpu_torch.ops import paths_ad
+from montecarlo_risk_engine_tpu_torch.ops import paths_ad, recon_tangents
 from test_torch_hybrid_models import HAZARDS, north_star_model, port_pkg
 
 torch.set_num_threads(1)
@@ -93,14 +95,22 @@ def test_recovered_noise_matches_jax(name):
     wt = torch.from_numpy(w)
     grad = jacfwd(lambda *p: torch.mean(recon_fn(p, z) * wt), argnums=tuple(range(len(params))))(
         *params)
+    # The forward-mode reconstruction kernel's route (its plain version on
+    # the CPU) on the same draws.
+    kernel_fn = recon_tangents.reconstruction(pm, SimulationScheme.EULER, TIMELINE, NUM_STEPS)
+    k_states = kernel_fn(params, z)
+    k_grad = jacfwd(lambda *p: torch.mean(kernel_fn(p, z) * wt),
+                    argnums=tuple(range(len(params))))(*params)
 
     live = np.ones_like(j_z, dtype=bool)
     live[..., -1] = ~floor  # a floored CIR++ step changes only the cirpp (last) normal
     np.testing.assert_allclose(z.numpy()[live], j_z[live], rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(states.numpy(), j_states, rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(states.numpy(), dense_states[orig_idx], rtol=1e-12, atol=1e-14)
-    for a, b, pname in zip(grad, j_grad, pm.get_model_param_names()):
+    np.testing.assert_allclose(k_states.numpy(), j_states, rtol=1e-12, atol=1e-14)
+    for a, k, b, pname in zip(grad, k_grad, j_grad, pm.get_model_param_names()):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-8, atol=1e-12, err_msg=pname)
+        np.testing.assert_allclose(float(k), float(b), rtol=1e-8, atol=1e-12, err_msg=pname)
 
 
 def test_floor_and_zero_diffusion_conventions():
