@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.config import real_dtype
 from montecarlo_risk_engine_tpu_torch.metrics.metrics import fixed_tree_sum, global_count
 from montecarlo_risk_engine_tpu_torch.models.black_scholes_multi import BlackScholesMulti
@@ -939,6 +940,11 @@ class ExerciseEquityBatch(TerminalBatch):
         cfs = immediate * exercised.to(immediate.dtype) / num_e[:, :, None]
         return cfs + torch.where(exercised, self._shift_down(carry), carry)
 
+    def _exercise_span(self, spots, phase: str):
+        """The ``exercise`` span of one loop over the events ``spots`` [E, P, N]."""
+        return tracing.span("exercise", kind=type(self.products[0]).__name__,
+                            products=len(self.products), steps=int(spots.shape[0]), phase=phase)
+
     def fit(self, tables: ObservableTables, ctx: Optional[ExposureContext] = None):
         """The LSM fit, last event first: coefficients [E, P, S, deg]."""
         spots, numeraires, strikes, is_prod, signs, h = self._event_tables(tables, ctx)
@@ -948,20 +954,21 @@ class ExerciseEquityBatch(TerminalBatch):
         carry = torch.zeros((len(self.products), tables.num_paths, self.num_states),
                             dtype=real_dtype(), device=dev)
         coeffs_all = [None] * spots.shape[0]
-        for e in reversed(range(spots.shape[0])):
-            spots_e, num_e, strike_e, is_prod_e = spots[e], numeraires[e], strikes[e], is_prod[e]
-            weights = None
-            if use_itm:
-                itm = (signs[:, None] * (spots_e - strike_e[:, None]) > 0.0).to(spots_e.dtype)
-                weights = torch.where((itm_gate & is_prod_e)[:, None], itm, 1.0)
-            coeffs = fit_least_squares(self.regression_function.get_regression_matrix(spots_e),
-                                       num_e[:, :, None] * carry, weights=weights,
-                                       sharding=tables.sharding)
-            stepped = self._hypothetical_step(carry, spots_e, num_e, strike_e, signs, coeffs,
-                                              itm_gate)
-            carry = torch.where(is_prod_e[:, None, None], stepped, carry)
-            coeffs_all[e] = coeffs
-        self._coeffs = torch.stack(coeffs_all)
+        with self._exercise_span(spots, "fit"):
+            for e in reversed(range(spots.shape[0])):
+                spots_e, num_e, strike_e, is_prod_e = spots[e], numeraires[e], strikes[e], is_prod[e]
+                weights = None
+                if use_itm:
+                    itm = (signs[:, None] * (spots_e - strike_e[:, None]) > 0.0).to(spots_e.dtype)
+                    weights = torch.where((itm_gate & is_prod_e)[:, None], itm, 1.0)
+                coeffs = fit_least_squares(self.regression_function.get_regression_matrix(spots_e),
+                                           num_e[:, :, None] * carry, weights=weights,
+                                           sharding=tables.sharding)
+                stepped = self._hypothetical_step(carry, spots_e, num_e, strike_e, signs, coeffs,
+                                                  itm_gate)
+                carry = torch.where(is_prod_e[:, None, None], stepped, carry)
+                coeffs_all[e] = coeffs
+            self._coeffs = torch.stack(coeffs_all)
 
     def evaluate(self, tables: ObservableTables, ctx: Optional[ExposureContext] = None):
         """Forward sweep: (cfs [P, N], exposures [T_exp, P, N] or None)."""
@@ -974,23 +981,25 @@ class ExerciseEquityBatch(TerminalBatch):
         cfs = torch.zeros((len(self.products), tables.num_paths), dtype=real_dtype(), device=dev)
         take = lambda grid, s: torch.gather(grid, -1, s[..., None])[..., 0]
         exposures = []
-        for e in range(spots.shape[0]):
-            spots_e, num_e, strike_e = spots[e], numeraires[e], strikes[e]
-            grid = matmul_t(self.regression_function.get_regression_matrix(spots_e),
-                            self._coeffs[e])
-            cont_hold = take(grid, state)
-            immediate = self._immediate(signs, spots_e, strike_e)
-            if self.is_flexi:
-                cont_ex = take(grid, torch.clamp(state - 1, min=0))
-                exercised = (immediate + cont_ex > cont_hold) & (state > 0)
-            else:
-                exercised = (immediate > cont_hold) & (state > 0)
-            exercised = exercised & is_prod[e][:, None] & (~itm_gate[:, None] | (immediate > 0.0))
-            cfs = cfs + immediate * exercised.to(immediate.dtype) / num_e
-            state = state - exercised.long()
-            if want_exposures:
-                # the realized state's continuation, read after the step
-                exposures.append(take(grid, state) / num_e)
+        with self._exercise_span(spots, "value"):
+            for e in range(spots.shape[0]):
+                spots_e, num_e, strike_e = spots[e], numeraires[e], strikes[e]
+                grid = matmul_t(self.regression_function.get_regression_matrix(spots_e),
+                                self._coeffs[e])
+                cont_hold = take(grid, state)
+                immediate = self._immediate(signs, spots_e, strike_e)
+                if self.is_flexi:
+                    cont_ex = take(grid, torch.clamp(state - 1, min=0))
+                    exercised = (immediate + cont_ex > cont_hold) & (state > 0)
+                else:
+                    exercised = (immediate > cont_hold) & (state > 0)
+                exercised = (exercised & is_prod[e][:, None]
+                             & (~itm_gate[:, None] | (immediate > 0.0)))
+                cfs = cfs + immediate * exercised.to(immediate.dtype) / num_e
+                state = state - exercised.long()
+                if want_exposures:
+                    # the realized state's continuation, read after the step
+                    exposures.append(take(grid, state) / num_e)
         if not want_exposures:
             return cfs, None
         # each product's own exposure rows -> [T_exp, P, N]

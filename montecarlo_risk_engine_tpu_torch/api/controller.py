@@ -995,10 +995,17 @@ class SimulationController:
         own dates' rows."""
         n = self._local(self.num_paths_presim)
         tables = self._exercise_event_tables(products, resolved, n)
-        coeffs = self._exercise_backward_scan(products, n, tables)
+        with self._exercise_span(products, tables, "fit"):
+            coeffs = self._exercise_backward_scan(products, n, tables)
         for i, product in enumerate(products):
             product.regression_coeffs = self._take_rows(coeffs[i], tables["prod_rows"][i])
         return coeffs
+
+    @staticmethod
+    def _exercise_span(products: Sequence[Product], tables, phase: str):
+        """The ``exercise`` span of one scan over a bucket's event tables."""
+        return tracing.span("exercise", kind=type(products[0]).__name__, products=len(products),
+                            steps=int(tables["expl"].shape[1]), phase=phase)
 
     @staticmethod
     def _take_rows(x, rows: np.ndarray):
@@ -1011,7 +1018,8 @@ class SimulationController:
         n = self._local(self.num_paths_mainsim)
         tables = self._exercise_event_tables(products, resolved, n)
         want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
-        cfs, exposures, _ = self._exercise_forward_scan(products, n, coeffs, tables, want)
+        with self._exercise_span(products, tables, "value"):
+            cfs, exposures, _ = self._exercise_forward_scan(products, n, coeffs, tables, want)
         if want:
             rows = torch.as_tensor(np.stack(tables["exp_rows"]), device=self.device)  # [P, T_exp]
             exposures = torch.gather(exposures, 1, rows[:, :, None].expand(-1, -1, n))

@@ -56,13 +56,33 @@ class DatedCost:
 
 
 class StorageConfig:
-    def __init__(self):
+    """The schedules may come as data: each keyword takes rows of numbers
+    (lists, or a float64 matrix) and adds them through the ``add_*`` method
+    of its kind, row by row in the given order, as a caller of those methods
+    would:
+
+      * ``volume_constraints``: (start, end, vmin, vmax[, penalty]);
+      * ``injection_flexibility``, ``withdrawal_flexibility``: (start, end,
+        volume point, rate);
+      * ``injection_costs``, ``withdrawal_costs``: (date, cost).
+
+    Without them the configuration starts empty."""
+
+    def __init__(self, volume_constraints=(), injection_flexibility=(), withdrawal_flexibility=(),
+                 injection_costs=(), withdrawal_costs=()):
         self.initial_volume_constraints: List[VolumeWindow] = []
         self.volume_constraints: List[VolumeWindow] = []
         self.injection_flexibility: List[RateSchedule] = []
         self.withdrawal_flexibility: List[RateSchedule] = []
         self.injection_costs: List[DatedCost] = []
         self.withdrawal_costs: List[DatedCost] = []
+        for rows, add in ((volume_constraints, self.add_volume_constraint),
+                          (injection_flexibility, self.add_injection_flexibility),
+                          (withdrawal_flexibility, self.add_withdrawal_flexibility),
+                          (injection_costs, self.add_variable_injection_cost),
+                          (withdrawal_costs, self.add_variable_withdrawal_cost)):
+            for row in rows:
+                add(*row)
 
     # -- window/grid helpers (storage_helpers.py:50-66) -------------------------
 

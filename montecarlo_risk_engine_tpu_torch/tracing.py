@@ -18,7 +18,9 @@ The controller opens the spans at its layer boundaries, never inside a loop
 over paths, substeps or dates.  A span opened while no other is open is a
 root, and starts a new run: ``Span.run`` counts the roots since the module
 was loaded.  Spans change no value.  Attributes are small ints or strings
-(``phase``, ``family``, ``products``, ``paths``, ``tangents``).
+(``phase``, ``family``, ``products``, ``paths``, ``tangents``; an
+``exercise`` span, around one loop of an exercise scan over its dates,
+carries ``kind``, ``products``, ``steps`` and ``phase`` "fit" or "value").
 """
 
 from __future__ import annotations

@@ -137,3 +137,50 @@ def test_spans_share_the_profilers_clock():
     assert len(inside) == len(spans) == 3
     for (start, end), s in zip(inside, spans):
         assert s.start_ns - 50_000 <= start and end <= s.end_ns + 50_000, (start, end, s)
+
+
+def small_mixed_book(per_family=2):
+    """The benchmark's mixed book, each family cut to its first products."""
+    cell = spec.load_cell("mixed_pv_book.pv_1k")
+    cfg = {**cell.config, "netting_sets": [{**ns, "products": [{**e, "count": per_family}
+                                                                for e in ns["products"]]}
+                                           for ns in cell.config["netting_sets"]]}
+    traffic = {**cell.traffic, "num_paths": PATHS, "num_paths_presim": PATHS}
+    return book.build_controller(mt, cfg, traffic, SEED, "cpu"), traffic
+
+
+def test_exercise_spans_one_a_scan_and_phase():
+    from montecarlo_risk_engine_tpu_torch.api.batching import ExerciseEquityBatch
+
+    c, traffic = small_mixed_book()
+    batches = [b for b in c._batches if isinstance(b, ExerciseEquityBatch)]
+    buckets = c._exercise_scan_groups()[0]
+    assert batches and buckets
+    scans = ([(type(b.products[0]).__name__, len(b.products), len(b.products[0].product_timeline))
+              for b in batches]
+             + [(type(b[0]).__name__, len(b), len(b[0].product_timeline)) for b in buckets])
+    tracing.enable()
+    answers(c, traffic)
+    spans = tracing.take()
+    exercise = [s for s in spans if s.name == "exercise"]
+    assert sorted((s.attrs["kind"], s.attrs["products"], s.attrs["steps"], s.attrs["phase"])
+                  for s in exercise) == sorted(scan + (phase,) for scan in scans
+                                               for phase in ("fit", "value"))
+    assert {s.attrs["kind"] for s in exercise} == {"AmericanOption", "FlexiCall", "Storage"}
+    for s in exercise:
+        assert spans[s.parent].name == s.attrs["phase"]
+        assert not any(x.parent == spans.index(s) for x in spans)  # the scan alone
+
+
+def test_exercise_spans_off_keep_nothing_and_change_no_value():
+    c, traffic = small_mixed_book()
+    plain = answers(c, traffic)
+    assert tracing.take() == [] and not tracing.enabled()
+    tracing.enable()
+    traced = answers(c, traffic)
+    assert any(s.name == "exercise" for s in tracing.take())
+    tracing.disable()
+    again = answers(c, traffic)
+    assert tracing.take() == []
+    for a, b, d in zip(plain, traced, again):
+        assert np.array_equal(a, b) and np.array_equal(a, d)
