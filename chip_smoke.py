@@ -201,10 +201,10 @@ Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
     python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only
-                           | --recon-only]
+                           | --recon-only | --storage-scan-only]
 
 (``--examples-only``: phase 7d alone, after building K1 and K2;
-``--recon-only``: phase 3f alone.)
+``--recon-only``: phase 3f alone; ``--storage-scan-only``: phase 3g alone.)
 
 (``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
 rank of phase 6b, started by the smoke itself.)
@@ -226,12 +226,13 @@ import torch
 from torch.func import jvp, vmap
 
 import montecarlo_risk_engine_tpu_torch as mt
+from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 from montecarlo_risk_engine_tpu_torch.ops import heston_ladder as k3_module
 from montecarlo_risk_engine_tpu_torch.ops import heston_qe as k1_module
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
-from montecarlo_risk_engine_tpu_torch.ops import recon_tangents
+from montecarlo_risk_engine_tpu_torch.ops import recon_tangents, storage_scan
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
@@ -2954,6 +2955,125 @@ def recon_phase():
     return list(rows.values())
 
 
+def storage_scan_phase():
+    """Phase 3g: the storage scan kernel (csrc/storage_scan.cu) at the mixed
+    book's shapes: its 100 storage deals at MIXED_PATHS paths.  Its build
+    (ptxas frames printed: the fit keeps each path's grid row and stack in
+    local memory); the fit's coefficients and normal equations and the
+    valuation's cashflows bitwise the plain version's; call, launch-only and
+    wrapper times beside the operations bound (the fit's tree-summed
+    products and DP steps at the card's float64 rate); then two warm runs of
+    the whole mixed book with the route on (one fit and one value launch a
+    run; its ``exercise`` spans: route "kernel" over every storage deal in
+    each phase) and off (the bucketed torch scans), PV to 1e-13 relative.
+    Returns the kernels' JSON rows."""
+    t0 = time.perf_counter()
+    built = cuda_build.load_library("storage_scan")
+    how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
+    print(f"[build] storage_scan: {how} -> {built.path.name}")
+    for kernel, frame in ptxas_frames(built.log).items():
+        print(f"  {kernel}: {frame}")
+    counts = {family: 0 for family in MIXED_COUNTS}
+    counts["storage"] = MIXED_COUNTS["storage"]
+    deals = build_book(list(ASSETS), counts)["storage"]
+    c = mt.SimulationController([mt.NettingSet(name="storage", products=deals)],
+                                bs_multi_model(), mt.RiskMetrics(metrics=[mt.PVMetric()]),
+                                MIXED_PATHS, MIXED_PATHS, 1, mt.SimulationScheme.ANALYTICAL,
+                                device="cuda")
+    c._ensure_plan()
+    params = c.model.initial_params(device=torch.device("cuda"), dtype=torch.float64)
+    with torch.no_grad():
+        pre, _ = c._simulate_and_resolve(params, MIXED_PATHS, mt.rng.PHASE_PRESIM)
+    deals = [p for bucket in c._exercise_scan_groups()[0] for p in bucket]
+    plan = c._storage_plan(deals)
+    tables, packed = plan.tables, plan.tables.packed
+    obs = c._storage_observations(plan, pre, MIXED_PATHS)
+    coeffs, normal = storage_scan.storage_fit(tables, obs, want_normal=True)
+    ref_coeffs, ref_normal = storage_scan.storage_fit_reference(tables, obs, True)
+    cfs, _ = storage_scan.storage_value(tables, obs, coeffs)
+    ref_cfs, _ = storage_scan.storage_value_reference(tables, obs, coeffs)
+    torch.cuda.synchronize()
+    max_abs_err = {}  # by phase, against the plain version
+    for phase, what, a, b in (("fit", "fit coefficients", coeffs, ref_coeffs),
+                              ("fit", "fit normal equations", normal, ref_normal),
+                              ("value", "value cashflows", cfs, ref_cfs)):
+        check(torch.equal(a, b), f"storage_scan {what}: not bitwise the plain version")
+        max_abs_err[phase] = max(max_abs_err.get(phase, 0.0), float((a - b).abs().max()))
+    # operations: the fit's tree-summed products (a product and an add each)
+    # and its DP step of every grid state (~120 float64 operations: two
+    # ramp interpolations, three candidates, four state lookups), the value
+    # phase's one step a path and event
+    n, deg = MIXED_PATHS, packed.deg
+    rows_states = np.repeat(packed.deals[:, storage_scan.STATES], packed.deals[:, 1])
+    is_prod = packed.consts[:, storage_scan.IS_PROD]
+    fit_ops = float(n * (2 * (deg + deg * (deg + 1) // 2 + deg * rows_states)
+                         + 120 * rows_states * is_prod).sum())
+    value_ops = float(n * 120 * is_prod.sum())
+    rows = []
+    for phase, run, plain, ops in (
+            ("fit", lambda: storage_scan.storage_fit(tables, obs),
+             lambda: storage_scan.storage_fit_reference(tables, obs), fit_ops),
+            ("value", lambda: storage_scan.storage_value(tables, obs, coeffs),
+             lambda: storage_scan.storage_value_reference(tables, obs, coeffs), value_ops)):
+        bound = ops / FP64_OPS_PER_S * 1e3
+        ms, launch_ms, wrapper_ms = call_split(f"storage_scan {phase}", storage_scan, run, bound,
+                                               bind=f"_bind_{phase}")
+        plain_ms = median_ms(plain, reps=3)
+        print(f"    {packed.num_deals} deals, {packed.rows.shape[0]} event rows, {n} paths: "
+              f"{ops / 1e9:.3f} GFLOP, {bound / launch_ms:.1%} of the operations bound "
+              f"{bound:.4f} ms; plain {plain_ms:.1f} ms")
+        rows.append({"name": f"storage_scan[{phase}]", "route": "cuda",
+                     "source": "montecarlo_risk_engine_tpu_torch/csrc/storage_scan.cu",
+                     "replaces": None, "launches": 0, "max_abs_err": max_abs_err[phase], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations",
+                     "library_ms": None, "launch_ms": launch_ms, "wrapper_ms": wrapper_ms})
+    del pre, obs, c
+    torch.cuda.empty_cache()
+
+    def mixed_pv(on):
+        """(warm wall, PV, storage launches, storage ``exercise`` spans of a
+        traced run as (route, phase, products)) of the whole mixed book."""
+        book = mt.SimulationController(*mixed_book_parts(MIXED_COUNTS), MIXED_PATHS,
+                                       MIXED_PATHS, 1, mt.SimulationScheme.ANALYTICAL,
+                                       device="cuda")
+        if not on:
+            book._storage_kernel_engages = lambda: False
+        book.run_simulation()
+        storage_scan.launches.clear()
+        out = []
+        wall = wall_seconds(lambda: out.append(book.run_simulation()))
+        launched = dict(storage_scan.launches)
+        tracing.enable()
+        try:
+            book.run_simulation()
+            spans = [(r.attrs["route"], r.attrs["phase"], r.attrs["products"])
+                     for r in tracing.take()
+                     if r.name == "exercise" and r.attrs["kind"] == "Storage"]
+        finally:
+            tracing.disable()
+        return (wall, float(out[0].get_results("mixed_book", "pv", evaluation_idx=0)),
+                launched, spans)
+
+    (wall_on, pv_on, launches, spans), (wall_off, pv_off, launches_off, spans_off) = (
+        mixed_pv(True), mixed_pv(False))
+    gap = abs(pv_on - pv_off) / abs(pv_off)
+    deals = MIXED_COUNTS["storage"]
+    print(f"[storage route] mixed book at {MIXED_PATHS} + {MIXED_PATHS} paths: wall "
+          f"{wall_on:.3f} s with the kernel, {wall_off:.3f} s on the torch scans; storage "
+          f"launches a run {launches}; PV {pv_on!r} vs {pv_off!r}, rel gap {gap:.3e}; storage "
+          f"exercise spans {spans} (route off: {len(spans_off)} spans over "
+          f"{sum(p for _, _, p in spans_off)} deals)")
+    check(launches == {"fit": 1, "value": 1} and not launches_off,
+          f"storage_scan launched {launches} / {launches_off} a run (route on / off)")
+    check(spans == [("kernel", "fit", deals), ("kernel", "value", deals)],
+          "the storage deals' exercise spans are not one kernel span a phase over every deal")
+    check(gap <= 1e-13, "the storage kernel route moved the mixed book's PV")
+    for row, phase in zip(rows, ("fit", "value")):
+        row["launches"] = launches.get(phase, 0)
+    print(f"[time] storage scan phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def reset_k2_counts():
     """K2's counts to 0: the paths kernel's and its table prologue's."""
     hybrid_paths.launches = 0
@@ -3194,6 +3314,10 @@ def main():
     # then its route in a differentiated north-star run, on and off
     recon_rows = recon_phase()
 
+    # 3g. the storage scan kernel at the mixed book's shapes, then its route
+    # in the whole mixed book, on and off
+    storage_rows = storage_scan_phase()
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
@@ -3285,7 +3409,7 @@ def main():
         "launch_ms": k1_launch_ms,
         "wrapper_ms": k1_wrapper_ms,
     }
-    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows}))
+    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows + storage_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3580,6 +3704,9 @@ if __name__ == "__main__":
     elif "--recon-only" in sys.argv[1:]:
         card()
         print(json.dumps({"kernels": recon_phase()}))
+    elif "--storage-scan-only" in sys.argv[1:]:
+        card()
+        print(json.dumps({"kernels": storage_scan_phase()}))
     elif "--shard-rank" in sys.argv[1:]:
         shard_rank_main(sys.argv[1:])
     else:

@@ -943,7 +943,8 @@ class ExerciseEquityBatch(TerminalBatch):
     def _exercise_span(self, spots, phase: str):
         """The ``exercise`` span of one loop over the events ``spots`` [E, P, N]."""
         return tracing.span("exercise", kind=type(self.products[0]).__name__,
-                            products=len(self.products), steps=int(spots.shape[0]), phase=phase)
+                            products=len(self.products), steps=int(spots.shape[0]), phase=phase,
+                            route="torch")
 
     def fit(self, tables: ObservableTables, ctx: Optional[ExposureContext] = None):
         """The LSM fit, last event first: coefficients [E, P, S, deg]."""

@@ -145,7 +145,7 @@ import logging
 import time
 from bisect import bisect_left
 from collections import defaultdict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -176,7 +176,7 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
-from montecarlo_risk_engine_tpu_torch.ops import recon_tangents
+from montecarlo_risk_engine_tpu_torch.ops import recon_tangents, storage_scan
 from montecarlo_risk_engine_tpu_torch.ops.path_shard import (
     sharded_kernel_paths,
     sharded_kernel_paths_with_noise,
@@ -205,6 +205,17 @@ _SCALAR_METRICS = {MetricType.PV, MetricType.CVA, MetricType.EEPE, MetricType.CE
 # Elements of the stacked [dates, N, deg] basis of one batched exposure fit:
 # a 1,000-path book fits all its dates at once, a 1e6-path book one at a time.
 _FIT_BATCH_ELEMENTS = 1 << 22
+
+
+class _StoragePlan(NamedTuple):
+    """The storage kernel's tables of a list of deals on the device, the
+    handles of the rows of their observation table, each deal's netting set
+    on the device and the rows of its own dates (None: all)."""
+
+    tables: storage_scan.Tables
+    handles: List[int]
+    seg: torch.Tensor
+    prod_rows: List[Optional[torch.Tensor]]
 
 
 def _family(batch) -> str:
@@ -380,6 +391,8 @@ class SimulationController:
         # Family batches (controller.py:275-304): every product that the
         # simulation values, grouped by family and static signature.
         self._batches, self._batched_ids = [], set()
+        self._storage_packs: Dict[tuple, tuple] = {}  # the storage kernel's host tables
+        self._storage_plans: Dict[tuple, _StoragePlan] = {}  # and on the device
         if batch_products:
             batchable = [p for p in self.products if p.product_id not in self._analytic_ids]
             self._batches, self._batched_ids = plan_batches(
@@ -1005,7 +1018,7 @@ class SimulationController:
     def _exercise_span(products: Sequence[Product], tables, phase: str):
         """The ``exercise`` span of one scan over a bucket's event tables."""
         return tracing.span("exercise", kind=type(products[0]).__name__, products=len(products),
-                            steps=int(tables["expl"].shape[1]), phase=phase)
+                            steps=int(tables["expl"].shape[1]), phase=phase, route="torch")
 
     @staticmethod
     def _take_rows(x, rows: np.ndarray):
@@ -1024,6 +1037,98 @@ class SimulationController:
             rows = torch.as_tensor(np.stack(tables["exp_rows"]), device=self.device)  # [P, T_exp]
             exposures = torch.gather(exposures, 1, rows[:, :, None].expand(-1, -1, n))
         return cfs, exposures
+
+    # -- the storage kernel (ops/storage_scan.py) -------------------------------------
+    #
+    # Every storage deal of the book in one launch per phase, where no
+    # derivative flows through the scan (storage_scan.engages): each deal reads
+    # its own slice of flat tables, so the buckets' shared shapes are not
+    # needed.  The torch scans stay the route of the CPU, of AD, of a path
+    # sharding and of simulate_exercise_states.
+
+    def _storage_kernel_engages(self) -> bool:
+        """Whether this controller's storage deals may take the kernel
+        (storage_scan.engages: a CUDA device, no path sharding, float64, a
+        polynomial basis of at most 4 columns)."""
+        return storage_scan.engages(self.device, self.regression_function, self.path_sharding)
+
+    def _storage_kernel_split(self, buckets, resolved):
+        """(storage deals for the kernel, the buckets left to the torch scans):
+        no deals where a derivative flows through their observations."""
+        deals = [p for bucket in buckets for p in bucket if storage_scan.kernel_deal(p)]
+        if not deals or not self._storage_kernel_engages():
+            return [], buckets
+        _, handles = self._storage_pack(deals)
+        if storage_scan.gradient_flows([resolved[0][h] for h in handles]):
+            return [], buckets
+        return deals, [b for b in buckets if not storage_scan.kernel_deal(b[0])]
+
+    def _storage_pack(self, deals: Sequence[Product]):
+        """(the deals' packed tables on the host, the handles of the rows of
+        their observation table), built once per controller."""
+        key = tuple(id(p) for p in deals)
+        if key not in self._storage_packs:
+            def observation_keys(product, t, i):
+                asset = product.asset_ids[0]
+                if i is None:
+                    return (self.spot_requests[(t, asset)].handle,
+                            self.numeraire_requests[(t, "numeraire")].handle)
+                return product.spot_requests[(i, asset)].handle, product.numeraire_requests[i].handle
+
+            self._storage_packs[key] = storage_scan.pack(
+                deals, self.exposure_timeline, self.regression_function.get_degree(),
+                observation_keys)
+        return self._storage_packs[key]
+
+    def _storage_plan(self, deals: Sequence[Product]) -> "_StoragePlan":
+        """The deals' tables on the device, uploaded once per controller."""
+        key = tuple(id(p) for p in deals)
+        plan = self._storage_plans.get(key)
+        if plan is None:
+            packed, handles = self._storage_pack(deals)
+            ns_of = [self.product_to_netting_set_idx[p.product_id] for p in deals]
+            plan = _StoragePlan(storage_scan.upload(packed, self.device), handles,
+                                torch.as_tensor(ns_of, device=self.device),
+                                [None if len(rows) == events
+                                 else torch.as_tensor(rows, device=self.device)
+                                 for rows, events in zip(packed.prod_rows,
+                                                         packed.deals[:, storage_scan.EVENTS])])
+            self._storage_plans[key] = plan
+        return plan
+
+    def _storage_observations(self, plan: "_StoragePlan", resolved, num_paths: int):
+        """The deals' observation table [U, N] of one phase."""
+        return torch.stack([torch.broadcast_to(resolved[0][h], (num_paths,))
+                            for h in plan.handles])
+
+    @staticmethod
+    def _storage_span(plan: "_StoragePlan", phase: str):
+        """The ``exercise`` span of one kernel launch over every deal."""
+        packed = plan.tables.packed
+        return tracing.span("exercise", kind="Storage", products=packed.num_deals,
+                            steps=packed.max_events, phase=phase, route="kernel")
+
+    def _fit_storage_kernel(self, deals: Sequence[Product], resolved):
+        """The fit of every deal on pre-simulation paths: the flat
+        coefficients; each deal's ``regression_coeffs`` are its own dates'
+        rows of them."""
+        plan = self._storage_plan(deals)
+        obs = self._storage_observations(plan, resolved, self._local(self.num_paths_presim))
+        with self._storage_span(plan, "fit"):
+            coeffs, _ = storage_scan.storage_fit(plan.tables, obs)
+        views = storage_scan.deal_coefficients(plan.tables.packed, coeffs)
+        for product, view, rows in zip(deals, views, plan.prod_rows):
+            product.regression_coeffs = view if rows is None else view.index_select(0, rows)
+        return coeffs
+
+    def _evaluate_storage_kernel(self, deals: Sequence[Product], coeffs, resolved):
+        """Every deal on main-simulation paths: (cashflows [D, N], exposure
+        profiles [D, T_exp, N] or None)."""
+        plan = self._storage_plan(deals)
+        obs = self._storage_observations(plan, resolved, self._local(self.num_paths_mainsim))
+        want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
+        with self._storage_span(plan, "value"):
+            return storage_scan.storage_value(plan.tables, obs, coeffs, want)
 
     def simulate_exercise_states(self, product: Product) -> np.ndarray:
         """Realized states [len(product timeline), N] of one exercise product
@@ -1207,15 +1312,18 @@ class SimulationController:
                               products=len(products)):
                 cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
                 ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
-                seg = torch.as_tensor(ns_of, device=self.device)
-                cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
-                if exp_p is not None:
-                    exp_ns = torch.zeros((num_ns,) + exp_p.shape[1:], dtype=exp_p.dtype,
-                                         device=self.device).index_add(0, seg, exp_p)
-                    for ns_idx in sorted(set(ns_of)):
-                        exp_acc[ns_idx] = (exp_ns[ns_idx] if exp_acc[ns_idx] is None
-                                           else exp_acc[ns_idx] + exp_ns[ns_idx])
+                cfs_acc = self._add_exercise_values(
+                    ns_of, torch.as_tensor(ns_of, device=self.device), cfs_p, exp_p, cfs_acc,
+                    exp_acc)
             done.update(p.product_id for p in products)
+        if fits.get("storage") is not None:
+            deals, coeffs = fits["storage"]
+            with tracing.span("value", exercise_bucket="Storage", products=len(deals)):
+                cfs_p, exp_p = self._evaluate_storage_kernel(deals, coeffs, resolved)
+                ns_of = [self.product_to_netting_set_idx[p.product_id] for p in deals]
+                cfs_acc = self._add_exercise_values(ns_of, self._storage_plan(deals).seg, cfs_p,
+                                                    exp_p, cfs_acc, exp_acc)
+            done.update(p.product_id for p in deals)
         cfs_rows = list(cfs_acc.unbind(0))
         for prod_idx, product in enumerate(self.products):
             if product.product_id in done:
@@ -1238,6 +1346,20 @@ class SimulationController:
                 nested.append(self._evaluate_netting_set(i, ns, cfs_rows[i], exp_acc[i], resolved,
                                                          analytic[i], has_pathwise[i]))
         return nested
+
+    @staticmethod
+    def _add_exercise_values(ns_of, seg, cfs_p, exp_p, cfs_acc, exp_acc):
+        """Exercise products' cashflows [P, N] and exposure profiles [P,
+        T_exp, N] (or None) into their netting sets ``ns_of`` (``seg`` on the
+        device): the new ``cfs_acc``; ``exp_acc`` is updated in place."""
+        cfs_acc = cfs_acc.index_add(0, seg, cfs_p)
+        if exp_p is not None:
+            exp_ns = torch.zeros((cfs_acc.shape[0],) + exp_p.shape[1:], dtype=exp_p.dtype,
+                                 device=exp_p.device).index_add(0, seg, exp_p)
+            for ns_idx in sorted(set(ns_of)):
+                exp_acc[ns_idx] = (exp_ns[ns_idx] if exp_acc[ns_idx] is None
+                                   else exp_acc[ns_idx] + exp_ns[ns_idx])
+        return cfs_acc
 
     def _exposure_ctx(self) -> Optional[ExposureContext]:
         """The batches' exposure context, None for a book without exposure
@@ -1262,7 +1384,11 @@ class SimulationController:
                     with tracing.span("fit", family=_family(batch), products=len(batch.products)):
                         batch.fit_exposure(tables_pre, ctx)
         buckets, plain = self._exercise_scan_groups()
-        fits = {"buckets": [], "exposure": {}}
+        deals, buckets = self._storage_kernel_split(buckets, resolved_pre)
+        fits = {"buckets": [], "exposure": {}, "storage": None}
+        if deals:
+            with tracing.span("fit", exercise_bucket="Storage", products=len(deals)):
+                fits["storage"] = (deals, self._fit_storage_kernel(deals, resolved_pre))
         for bucket in buckets:
             with tracing.span("fit", exercise_bucket=type(bucket[0]).__name__,
                               products=len(bucket)):

@@ -16,7 +16,11 @@ import montecarlo_risk_engine_tpu as mj
 import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu import rng as jax_rng
 from montecarlo_risk_engine_tpu.utils.regression import fit_least_squares as jax_fit
+from montecarlo_risk_engine_tpu_torch import tracing
+from montecarlo_risk_engine_tpu_torch.ops import storage_scan
 from montecarlo_risk_engine_tpu_torch.utils.regression import fit_least_squares
+from gas_books import (compare, compare_coeffs, exposure_book, flexicall, gas_book, pv_book, s2f,
+                       scan_storage)
 from test_torch_hybrid_models import jax_engine_normals
 
 torch.set_num_threads(1)
@@ -51,37 +55,6 @@ def jax_presim_coeffs(jc, products):
         return [product.regression_coeffs for product in products]
 
     return [np.asarray(c) for c in jax.jit(fits)(params)]
-
-
-def compare_coeffs(products, jax_coeffs, spot0):
-    """Each product's ``regression_coeffs`` against the JAX package's, rtol
-    1e-8.  At t = 0 the explanatory spot is the constant ``spot0``: the
-    basis has rank one, the ridge alone makes the Gram matrix invertible
-    (condition ~1e10), and the coefficients carry ~1e-6 relative rounding,
-    so that row is compared by the value it predicts, basis(spot0) @ c."""
-    for product, ref in zip(products, jax_coeffs):
-        ported = product.regression_coeffs.numpy()
-        assert ported.shape == ref.shape
-        for row, t in enumerate(product.regression_timeline):
-            if t == 0.0:
-                basis = spot0 ** np.arange(ref.shape[-1])
-                np.testing.assert_allclose(ported[row] @ basis, ref[row] @ basis, rtol=1e-8,
-                                           atol=1e-12)
-            else:
-                np.testing.assert_allclose(ported[row], ref[row], rtol=1e-8, atol=1e-12)
-
-
-def compare(pr, jr, differentiate):
-    for ns in jr.get_netting_set_names():
-        for metric in jr.get_metric_names():
-            np.testing.assert_allclose(pr.get_results(ns, metric), jr.get_results(ns, metric),
-                                       rtol=1e-9, atol=1e-13, err_msg=f"{ns} {metric}")
-            np.testing.assert_allclose(pr.get_mc_error(ns, metric), jr.get_mc_error(ns, metric),
-                                       rtol=1e-9, atol=1e-13, err_msg=f"{ns} {metric}")
-            if differentiate:
-                np.testing.assert_allclose(np.asarray(pr.get_derivatives(ns, metric)),
-                                           np.asarray(jr.get_derivatives(ns, metric)),
-                                           rtol=1e-7, atol=1e-10, err_msg=f"{ns} {metric}")
 
 
 # -- Bermudan and American ----------------------------------------------------------
@@ -126,38 +99,6 @@ def test_bermudan_and_american_match_jax(differentiate, itm_only):
 
 # -- FlexiCall and Storage -----------------------------------------------------------
 
-def s2f(pkg):
-    return pkg.SchwartzTwoFactorModel(0.0, [0.0, 2.0], [10.0, 11.0], rate=0.02,
-                                      short_term_mean_reversion=1.0, short_term_vol=0.4,
-                                      long_term_drift=0.01, long_term_vol=0.2, rho=0.3,
-                                      asset_id="gas")
-
-
-def scan_storage(pkg, initial=3.0, num_states=6):
-    """The storage of tests/test_storage_scan_equivalence.py."""
-    cfg = pkg.StorageConfig()
-    cfg.add_volume_constraint(0.0, 2.0, 0.0, 10.0)
-    cfg.add_injection_flexibility(0.0, 2.0, 0.0, 3.0)
-    cfg.add_injection_flexibility(0.0, 2.0, 6.0, 1.5)
-    cfg.add_withdrawal_flexibility(0.0, 2.0, 0.0, 1.0)
-    cfg.add_withdrawal_flexibility(0.0, 2.0, 6.0, 2.5)
-    cfg.add_variable_injection_cost(0.0, 0.2)
-    cfg.add_variable_withdrawal_cost(0.0, 0.15)
-    return pkg.Storage(asset_id="gas", start_date=0.0, end_date=2.0, initial_amount=initial,
-                       storage_config=cfg, num_states=num_states, rollout_interval=0.25)
-
-
-def flexicall(pkg, rights=2, itm_only=False):
-    unds = [pkg.EuropeanOption(pkg.Equity("gas"), t, 10.0 + k, pkg.OptionType.CALL, asset_id="gas")
-            for k, t in enumerate([0.5, 1.0, 1.5])]
-    return pkg.FlexiCall(unds, rights, asset_id="gas", itm_only_regression=itm_only)
-
-
-def gas_book(pkg):
-    return [pkg.NettingSet(name="storage", products=[scan_storage(pkg), scan_storage(pkg, 4.0)]),
-            pkg.NettingSet(name="flexicall", products=[flexicall(pkg), flexicall(pkg, 1, True)])]
-
-
 @pytest.mark.parametrize("differentiate", [False, True], ids=["forward", "differentiated"])
 def test_flexicall_and_storage_match_jax(differentiate):
     jbook = gas_book(mj)
@@ -183,19 +124,41 @@ def test_exercise_exposures_in_forward_mode_match_jax():
     """A storage and a FlexiCall with EPE on 7 dates (the exposure rows of
     the event tables, continuation exposures): P = 6 <= V = 7 takes the
     forward-mode jacobian, the scans under torch.func's jvp and vmap."""
-    def book(pkg):
-        metrics = pkg.RiskMetrics([pkg.EPEMetric()], exposure_timeline=np.linspace(0.0, 1.8, 7))
-        return ([pkg.NettingSet(name="s", products=[scan_storage(pkg), flexicall(pkg)])], s2f(pkg),
-                metrics)
-
-    jc = mj.SimulationController(*book(mj), N, N, 1, mj.SimulationScheme.ANALYTICAL,
+    jc = mj.SimulationController(*exposure_book(mj), N, N, 1, mj.SimulationScheme.ANALYTICAL,
                                  differentiate=True, **JAX_FLAGS)
     jr = jc.run_simulation()
-    pc = mt.SimulationController(*book(mt), N, N, 1, mt.SimulationScheme.ANALYTICAL,
+    pc = mt.SimulationController(*exposure_book(mt), N, N, 1, mt.SimulationScheme.ANALYTICAL,
                                  differentiate=True, device="cpu", noise_source=injected(jc, 1, 2))
     pr = pc.run_simulation()
     assert pc._grad_mode_resolved == "fwd"
     compare(pr, jr, True)
+
+
+@pytest.mark.parametrize("book", [pv_book, exposure_book], ids=["pv", "exposures"])
+def test_storage_kernel_route_matches_jax(monkeypatch, book):
+    """The storage kernel's route on the gas books above (the s2f storages:
+    two-point curves, initial amounts 3 and 4; with and without exposure
+    rows), with the CPU among the kernel's devices so that its plain
+    version stands in for the kernel: the packed tables, observation rows,
+    coefficient views and netting.  Values and errors, and every product's
+    ``regression_coeffs``, against the JAX package's at the tolerances
+    above."""
+    monkeypatch.setattr(storage_scan, "_KERNEL_DEVICES", ("cuda", "cpu"))
+    jc = mj.SimulationController(*book(mj), N, N, 1, mj.SimulationScheme.ANALYTICAL, **JAX_FLAGS)
+    jr = jc.run_simulation()
+    pc = mt.SimulationController(*book(mt), N, N, 1, mt.SimulationScheme.ANALYTICAL, device="cpu",
+                                 noise_source=injected(jc, 1, 2), batch_products=False)
+    tracing.enable()
+    try:
+        pr = pc.run_simulation()
+        spans = [(r.attrs["route"], r.attrs["phase"], r.attrs["products"]) for r in tracing.take()
+                 if r.name == "exercise" and r.attrs["kind"] == "Storage"]
+    finally:
+        tracing.disable()
+    storages = sum(isinstance(p, mt.Storage) for p in pc.products)
+    assert spans == [("kernel", "fit", storages), ("kernel", "value", storages)]
+    compare(pr, jr, False)
+    compare_coeffs(pc.products, jax_presim_coeffs(jc, jc.products), 10.0)
 
 
 def test_exposure_book_walks_regression_and_exposure_dates():
