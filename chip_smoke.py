@@ -229,8 +229,6 @@ import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
-from montecarlo_risk_engine_tpu_torch.ops import heston_ladder as k3_module
-from montecarlo_risk_engine_tpu_torch.ops import heston_qe as k1_module
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
 from montecarlo_risk_engine_tpu_torch.ops import recon_tangents, storage_scan
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
@@ -415,19 +413,22 @@ def median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def split_ms(module, run, reps: int = 5, bind: str = "_bind"):
+def split_ms(symbol, run, reps: int = 5):
     """(launch-only, wrapper host) ms of one wrapper call, warm medians of
-    ``reps`` runs.  The module's ``bind`` hook, which returns the kernel's C
-    function, is wrapped for the duration: launch-only is CUDA events
-    recorded just before and after that C call, its inputs prepared;
-    wrapper is the host clock from the call's start to that C call, with no
-    sync inside.  The same code measures any tree whose wrapper binds its
-    kernel through ``bind`` at each call."""
-    real = getattr(module, bind)
+    ``reps`` runs.  ``cuda_build.bind``, which returns a kernel's C
+    function, is wrapped for the duration, and the C function ``symbol``
+    with it: launch-only is CUDA events recorded just before and after that
+    C call, its inputs prepared; wrapper is the host clock from the call's
+    start to that C call, with no sync inside.  The same code measures any
+    tree whose wrappers bind their kernels through ``cuda_build.bind`` at
+    each call."""
+    real = cuda_build.bind
     mark = {}
 
-    def timed_bind(lib):
-        fn = real(lib)
+    def timed_bind(lib, name, argtypes):
+        fn = real(lib, name, argtypes)
+        if name != symbol:
+            return fn
 
         def timed(*args):
             mark["host"] = time.perf_counter() - mark["t0"]
@@ -438,7 +439,7 @@ def split_ms(module, run, reps: int = 5, bind: str = "_bind"):
 
         return timed
 
-    setattr(module, bind, timed_bind)
+    cuda_build.bind = timed_bind
     launch, host = [], []
     try:
         for i in range(reps + 1):
@@ -452,15 +453,15 @@ def split_ms(module, run, reps: int = 5, bind: str = "_bind"):
                 launch.append(mark["start"].elapsed_time(mark["end"]))
                 host.append(mark["host"] * 1e3)
     finally:
-        setattr(module, bind, real)
+        cuda_build.bind = real
     return statistics.median(launch), statistics.median(host)
 
 
-def call_split(label, module, run, bound_ms=None, issue_ms=None, bind="_bind"):
-    """Call, launch-only and wrapper time of one kernel's wrapper, printed
-    on a [time] line; returns the three."""
+def call_split(label, symbol, run, bound_ms=None, issue_ms=None):
+    """Call, launch-only and wrapper time of one kernel's wrapper (its C
+    function ``symbol``), printed on a [time] line; returns the three."""
     ms = median_ms(run)
-    launch_ms, wrapper_ms = split_ms(module, run, bind=bind)
+    launch_ms, wrapper_ms = split_ms(symbol, run)
     extra = "" if bound_ms is None else f", bound {bound_ms:.4f} ms"
     extra += "" if issue_ms is None else f", issue-slot {issue_ms:.4f} ms"
     print(f"[time] {label}: call {ms:.4f} ms, launch-only {launch_ms:.4f} ms, "
@@ -591,7 +592,8 @@ def k2_rung(label, blocks, chol, params, timeline, steps, num_paths=NUM_PATHS, p
         f"K2 {label}", cuda_build.load_library("hybrid_paths", k2_module.role_flags(blocks)),
         "hybrid_kernelILb1E" if num_paths * state_dim % 4 == 0 else "hybrid_kernelILb0E",
         substeps)
-    ms, launch_ms, wrapper_ms = call_split(f"K2 {label}", k2_module, run, t_bound, issue_ms)
+    ms, launch_ms, wrapper_ms = call_split(f"K2 {label}", "mcre_hybrid_paths", run, t_bound,
+                                           issue_ms)
     print(f"    [{len(timeline)} points x {steps} substeps, D={state_dim}] call {ms:.4f} ms "
           f"({substeps / ms * 1e3:.3e} path-steps/s), plain {plain_ms:.3f} ms, bound "
           f"{t_bound:.4f} ms by {by} ({t_bound / ms:.1%} of it reached by the call, "
@@ -631,8 +633,8 @@ def table_row(blocks, params, timeline, steps):
     ops = rows * (width + sum(TABLE_GROUP_OPS[g[0]] for g in _table_groups(blocks))) + n_par + dim
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_OPS_PER_S * 1e3
     t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    ms, launch_ms, wrapper_ms = call_split("K2 table prologue", k2_module, run, t_bound,
-                                           bind="_bind_table")
+    ms, launch_ms, wrapper_ms = call_split("K2 table prologue", "mcre_hybrid_table", run,
+                                           t_bound)
     print(f"    [{rows} rows x {width} columns] plain {plain_ms:.3f} ms")
     return {"name": "hybrid_table", "route": "cuda",
             "source": "montecarlo_risk_engine_tpu_torch/csrc/hybrid_paths.cu",
@@ -2808,7 +2810,7 @@ def k3_ladder(issue):
     d.print_table(table)
     substeps = n * live_substeps(timeline, steps)
     for rung, r in zip(RUNGS, table):
-        launch_ms, wrapper_ms = split_ms(k3_module, lambda: d.run(rung, params))
+        launch_ms, wrapper_ms = split_ms("mcre_heston_ladder", lambda: d.run(rung, params))
         t_bound, by = bound(len(timeline) * n * 8, substeps * K3_OPS_PER_SUBSTEP[rung])
         rows[rung].update(launches=launches[rung], ms=r["single_ms"], bound_ms=t_bound,
                           bound_by=by, library_ms=None, launch_ms=launch_ms,
@@ -2906,8 +2908,8 @@ def recon_phase():
         plain_ms = median_ms(lambda: recon_tangents.recon_planes_reference(*args), reps=3)
         nbytes = (planes * n_pts * layout.state_dim + n_dense * len(layout.roles)) * NS_PATHS * 8
         t_bound = nbytes / HBM_BYTES_PER_S * 1e3
-        ms, launch_ms, wrapper_ms = call_split(f"recon_tangents {label}", recon_tangents, run,
-                                               t_bound)
+        ms, launch_ms, wrapper_ms = call_split(f"recon_tangents {label}",
+                                               "mcre_recon_tangents", run, t_bound)
         print(f"    bitwise {same}, {nbytes / 1e9:.2f} GB: call {ms:.4f} ms, launch "
               f"{launch_ms:.4f} ms ({t_bound / launch_ms:.1%} of the byte bound "
               f"{t_bound:.4f} ms), plain {plain_ms:.3f} ms")
@@ -2984,10 +2986,10 @@ def storage_scan_phase():
     params = c.model.initial_params(device=torch.device("cuda"), dtype=torch.float64)
     with torch.no_grad():
         pre, _ = c._simulate_and_resolve(params, MIXED_PATHS, mt.rng.PHASE_PRESIM)
-    deals = [p for bucket in c._exercise_scan_groups()[0] for p in bucket]
-    plan = c._storage_plan(deals)
-    tables, packed = plan.tables, plan.tables.packed
-    obs = c._storage_observations(plan, pre, MIXED_PATHS)
+    book = c._book_deals
+    check(len(book.products) == len(deals), "the storage executor does not hold every deal")
+    tables = book.device_tables()
+    packed, obs = tables.packed, book.observations(pre, MIXED_PATHS)
     coeffs, normal = storage_scan.storage_fit(tables, obs, want_normal=True)
     ref_coeffs, ref_normal = storage_scan.storage_fit_reference(tables, obs, True)
     cfs, _ = storage_scan.storage_value(tables, obs, coeffs)
@@ -3016,8 +3018,8 @@ def storage_scan_phase():
             ("value", lambda: storage_scan.storage_value(tables, obs, coeffs),
              lambda: storage_scan.storage_value_reference(tables, obs, coeffs), value_ops)):
         bound = ops / FP64_OPS_PER_S * 1e3
-        ms, launch_ms, wrapper_ms = call_split(f"storage_scan {phase}", storage_scan, run, bound,
-                                               bind=f"_bind_{phase}")
+        ms, launch_ms, wrapper_ms = call_split(f"storage_scan {phase}", f"mcre_storage_{phase}",
+                                               run, bound)
         plain_ms = median_ms(plain, reps=3)
         print(f"    {packed.num_deals} deals, {packed.rows.shape[0]} event rows, {n} paths: "
               f"{ops / 1e9:.3f} GFLOP, {bound / launch_ms:.1%} of the operations bound "
@@ -3032,25 +3034,27 @@ def storage_scan_phase():
 
     def mixed_pv(on):
         """(warm wall, PV, storage launches, storage ``exercise`` spans of a
-        traced run as (route, phase, products)) of the whole mixed book."""
+        traced run as (route, phase, products)) of the whole mixed book; the
+        route off: the kernel's devices emptied."""
         book = mt.SimulationController(*mixed_book_parts(MIXED_COUNTS), MIXED_PATHS,
                                        MIXED_PATHS, 1, mt.SimulationScheme.ANALYTICAL,
                                        device="cuda")
-        if not on:
-            book._storage_kernel_engages = lambda: False
-        book.run_simulation()
-        storage_scan.launches.clear()
-        out = []
-        wall = wall_seconds(lambda: out.append(book.run_simulation()))
-        launched = dict(storage_scan.launches)
-        tracing.enable()
+        devices = storage_scan._KERNEL_DEVICES
+        storage_scan._KERNEL_DEVICES = devices if on else ()
         try:
+            book.run_simulation()
+            storage_scan.launches.clear()
+            out = []
+            wall = wall_seconds(lambda: out.append(book.run_simulation()))
+            launched = dict(storage_scan.launches)
+            tracing.enable()
             book.run_simulation()
             spans = [(r.attrs["route"], r.attrs["phase"], r.attrs["products"])
                      for r in tracing.take()
                      if r.name == "exercise" and r.attrs["kind"] == "Storage"]
         finally:
             tracing.disable()
+            storage_scan._KERNEL_DEVICES = devices
         return (wall, float(out[0].get_results("mixed_book", "pv", evaluation_idx=0)),
                 launched, spans)
 
@@ -3197,19 +3201,22 @@ def split_main(books_only: bool = False):
         print(json.dumps(out))
         return
     p32 = heston_params(device)
-    out["K1"] = call_split("K1 heston_qe_paths, Heston book", k1_module, lambda: heston_qe_paths(
-        p32, MATURITIES, NUM_PATHS, NUM_STEPS, seed=SEED, phase=PHASE))
+    out["K1"] = call_split("K1 heston_qe_paths, Heston book", "mcre_heston_qe_paths",
+                           lambda: heston_qe_paths(p32, MATURITIES, NUM_PATHS, NUM_STEPS,
+                                                   seed=SEED, phase=PHASE))
     blocks, chol, params, dense = north_star_kernel_args(device)
-    out["K2 north star"] = call_split("K2 hybrid_paths, north star", k2_module, lambda: hybrid_paths(
-        blocks, chol, params, dense, NS_PATHS, 1, seed=SEED, phase=PHASE))
+    out["K2 north star"] = call_split("K2 hybrid_paths, north star", "mcre_hybrid_paths",
+                                      lambda: hybrid_paths(blocks, chol, params, dense, NS_PATHS,
+                                                           1, seed=SEED, phase=PHASE))
     euro = euro_book(EURO_OPTIONS)[0]
     m = euro.model
     e_blocks, e_chol = [m.kernel_block(euro.simulation_scheme)], np.linalg.cholesky(
         m.kernel_correlation())
     e_params, e_tl = m.initial_params(device=device, dtype=torch.float32), euro.simulation_timeline
     del euro
-    out["K2 bs_multi"] = call_split("K2 hybrid_paths, BS-multi book", k2_module, lambda: hybrid_paths(
-        e_blocks, e_chol, e_params, e_tl, NUM_PATHS, 1, seed=SEED, phase=PHASE))
+    out["K2 bs_multi"] = call_split("K2 hybrid_paths, BS-multi book", "mcre_hybrid_paths",
+                                    lambda: hybrid_paths(e_blocks, e_chol, e_params, e_tl,
+                                                         NUM_PATHS, 1, seed=SEED, phase=PHASE))
     ns_fwd = north_star(NS_PATHS, False)
     walls = {
         "heston forward": warm_walls(lambda: controller(False)[0], 3),
@@ -3267,8 +3274,8 @@ def main():
     k1_bound = bound(len(MATURITIES) * NUM_PATHS * 2 * 4, k1_substeps * K1_OPS_PER_SUBSTEP)
     k1_issue = issue.slot_ms("K1 heston_qe_paths", builds["heston_qe", ()],
                              "heston_qe_kernelILb0ELb0E", k1_substeps)
-    k1_ms, k1_launch_ms, k1_wrapper_ms = call_split("K1 heston_qe_paths", k1_module, run_k1,
-                                                    k1_bound[0], k1_issue)
+    k1_ms, k1_launch_ms, k1_wrapper_ms = call_split("K1 heston_qe_paths", "mcre_heston_qe_paths",
+                                                    run_k1, k1_bound[0], k1_issue)
     print(f"  kernel {k1_ms:.3f} ms ({k1_substeps / k1_ms * 1e3:.3e} path-steps/s), "
           f"plain {k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
           f"({k1_bound[0] / k1_ms:.1%} of it reached)")

@@ -45,13 +45,17 @@ products of each family as one batch (api/batching.py, controller.py:
 American and FlexiCall options on an equity, bonds and swaps, each family
 fitted on the pre-simulation and valued on the main simulation as one
 table-driven computation.  The other products, and every product with
-``batch_products=False``, take the per-product path: exercise products
-(Bermudan, American, FlexiCall, Storage) run their LSM fit and valuation as
-loops over stacked event tables, one per bucket of products of one static
-signature (controller.py:490-876); products without a scan step take the
-per-date unrolled path.  The exercise decisions stay hard: gradients of
-every order flow through the payoffs and the pre-simulation fits, never
-through the policy.
+``batch_products=False``, take the per-product path.  Exercise products
+(Bermudan, American, FlexiCall, Storage) are fitted on the pre-simulation
+into one list of exercise executors, each valued on the main simulation
+into its netting sets by one ``index_add``: the torch scans, loops over
+stacked event tables, one per bucket of products of one static signature
+(controller.py:490-876), and the storage kernel's executor of every storage
+deal (ops/storage_scan.py ``BookDeals``, whose ``route`` decides where the
+kernel takes them: a CUDA device, no derivative through the deals, no path
+sharding).  Products without a scan step take the per-date unrolled path.
+The exercise decisions stay hard: gradients of every order flow through the
+payoffs and the pre-simulation fits, never through the policy.
 
 A PV metric of ``EvaluationType.ANALYTICAL`` takes each product's closed
 form where it has one and the Monte Carlo mean of the others
@@ -145,7 +149,7 @@ import logging
 import time
 from bisect import bisect_left
 from collections import defaultdict
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -205,17 +209,6 @@ _SCALAR_METRICS = {MetricType.PV, MetricType.CVA, MetricType.EEPE, MetricType.CE
 # Elements of the stacked [dates, N, deg] basis of one batched exposure fit:
 # a 1,000-path book fits all its dates at once, a 1e6-path book one at a time.
 _FIT_BATCH_ELEMENTS = 1 << 22
-
-
-class _StoragePlan(NamedTuple):
-    """The storage kernel's tables of a list of deals on the device, the
-    handles of the rows of their observation table, each deal's netting set
-    on the device and the rows of its own dates (None: all)."""
-
-    tables: storage_scan.Tables
-    handles: List[int]
-    seg: torch.Tensor
-    prod_rows: List[Optional[torch.Tensor]]
 
 
 def _family(batch) -> str:
@@ -391,8 +384,6 @@ class SimulationController:
         # Family batches (controller.py:275-304): every product that the
         # simulation values, grouped by family and static signature.
         self._batches, self._batched_ids = [], set()
-        self._storage_packs: Dict[tuple, tuple] = {}  # the storage kernel's host tables
-        self._storage_plans: Dict[tuple, _StoragePlan] = {}  # and on the device
         if batch_products:
             batchable = [p for p in self.products if p.product_id not in self._analytic_ids]
             self._batches, self._batched_ids = plan_batches(
@@ -409,11 +400,20 @@ class SimulationController:
         # only they hold would be resolved (and, under AD, carry tangents)
         # for nothing.  The JAX package's compiler drops those resolutions.
         self._plan_products = [p for p in self.products if id(p) not in self._batched_ids]
+        # The exercise scans' executors: the storage kernel's deals, and each
+        # torch scan bucket's netting sets on the device (built at its first fit).
+        scanned = [p for bucket in self._exercise_scan_groups()[0] for p in bucket]
+        self._book_deals = storage_scan.BookDeals(
+            scanned, [self.product_to_netting_set_idx[p.product_id] for p in scanned],
+            self.exposure_timeline, self.regression_function, self._observation_handles,
+            self.device, path_sharding)
+        self._bucket_segs: Dict[int, torch.Tensor] = {}
         self._all_requests = (self.spot_requests, self.numeraire_requests)
         self._use_requests(streaming=False)
 
         self._kernel_active = self._decide_kernel()
         self._plan: Optional[RequestPlan] = None
+        self._grad_mode_resolved: Optional[str] = None  # "fwd" or "rev", set by each run
 
     # -- setup helpers (controller.py:313-392) ------------------------------------
 
@@ -638,7 +638,8 @@ class SimulationController:
         """(forward_coarse, noise_fn, recon_fn) of the differentiated kernel
         route for one phase (controller.py:1192-1257), on this rank's paths;
         with an ``emit_schedule`` they return the schedule's rows
-        (kernel-streaming AD)."""
+        (kernel-streaming AD).  Where :meth:`_recon_kernel_engages` holds, the
+        plane's ``recon_fn`` is the reconstruction kernel's."""
         dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
                                   self.num_steps)
         scheme, n = self.simulation_scheme, self._local(num_paths)
@@ -655,18 +656,23 @@ class SimulationController:
             return sharded_kernel_paths(self.model, p, scheme, dense, num_paths, 1,
                                         self.root_seed, phase, self.path_sharding)
 
-        return recovered_noise_fns(self.model, scheme, self.simulation_timeline,
-                                   n, self.num_steps, dense_forward, emit_schedule)
+        fns = recovered_noise_fns(self.model, scheme, self.simulation_timeline,
+                                  n, self.num_steps, dense_forward, emit_schedule)
+        if emit_schedule is None and self._recon_kernel_engages():
+            fns = fns[:2] + (recon_tangents.reconstruction(
+                self.model, scheme, self.simulation_timeline, self.num_steps,
+                self.grad_chunk_size),)
+        return fns
 
     def _recon_kernel_engages(self) -> bool:
         """Whether the differentiated kernel route's plane is rebuilt by the
         forward-mode reconstruction kernel (ops/recon_tangents.py): forward
         mode, no Hessian, the float64 working dtype (the kernel's), draws
         recovered from the states (not emitted) and Vasicek, Black-Scholes
-        and CIR++ Euler blocks only.  The plane route (no emission schedule)
-        is the caller's branch; a path sharding is no reason to fall back."""
+        and CIR++ Euler blocks only, on the plane route (no emission
+        schedule); a path sharding is no reason to fall back."""
         scheme = self.simulation_scheme
-        return (getattr(self, "_grad_mode_resolved", None) == "fwd"
+        return (self._grad_mode_resolved == "fwd"
                 and not self.requires_higher_order_derivatives
                 and real_dtype() == torch.float64
                 and self.model.kernel_ad_mode(scheme) == "invert"
@@ -722,10 +728,6 @@ class SimulationController:
                 route = "recon_kernel" if self._recon_kernel_engages() else "recon"
                 with tracing.span("paths", phase=phase, paths=num_paths, route=route):
                     _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
-                    if route == "recon_kernel":
-                        recon_fn = recon_tangents.reconstruction(
-                            self.model, self.simulation_scheme, self.simulation_timeline,
-                            self.num_steps, self.grad_chunk_size)
                     noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)
                     states = recon_fn(params, noise)
             else:
@@ -803,13 +805,9 @@ class SimulationController:
             else:
                 total_cfs = cf_cache[t_next]
 
-            if t_reg in product_reg_timeline:
-                i_t = product_timeline.index(t_reg)
-                numeraire = resolved[0][product.numeraire_requests[i_t].handle]
-                explanatory = resolved[0][product.spot_requests[(i_t, product.asset_ids[0])].handle]
-            else:
-                numeraire = resolved[0][self.numeraire_requests[(t_reg, "numeraire")].handle]
-                explanatory = resolved[0][self.spot_requests[(t_reg, product.asset_ids[0])].handle]
+            i_t = product_timeline.index(t_reg) if t_reg in product_reg_timeline else None
+            explanatory, numeraire = (resolved[0][h]
+                                      for h in self._observation_handles(product, t_reg, i_t))
             numeraire_col = numeraire[:, None] if numeraire.dim() == 1 else numeraire
             basis = self.regression_function.get_regression_matrix(
                 torch.broadcast_to(explanatory, (num_paths,)))
@@ -888,16 +886,14 @@ class SimulationController:
         zeros = torch.zeros((num_paths,), dtype=dtype, device=self.device)
         expl, num, und, strike, is_prod, extras_rows, prod_rows, exp_rows = ([] for _ in range(8))
         for product in products:
-            asset = product.asset_ids[0]
             prod_time_to_idx = {t: i for i, t in enumerate(product.product_timeline)}
             strikes = product.scan_event_strikes()
             e_rows, n_rows, u_rows, s_row, p_row, x_idx, p_rows, x_rows = ([] for _ in range(8))
             for row, t in enumerate(sorted(set(product.product_timeline)
                                            | set(self.exposure_timeline))):
-                if t in prod_time_to_idx:
-                    i = prod_time_to_idx[t]
-                    e = resolved[0][product.spot_requests[(i, asset)].handle]
-                    n = resolved[0][product.numeraire_requests[i].handle]
+                i = prod_time_to_idx.get(t)
+                e, n = (resolved[0][h] for h in self._observation_handles(product, t, i))
+                if i is not None:
                     u = (resolved[1][product.underlying_requests[i].get_handle()]
                          if i in product.underlying_requests else zeros)
                     s_row.append(strikes[i])
@@ -905,8 +901,6 @@ class SimulationController:
                     x_idx.append(i)
                     p_rows.append(row)
                 else:
-                    e = resolved[0][self.spot_requests[(t, asset)].handle]
-                    n = resolved[0][self.numeraire_requests[(t, "numeraire")].handle]
                     u = zeros
                     s_row.append(0.0)
                     p_row.append(False)
@@ -1014,6 +1008,15 @@ class SimulationController:
             product.regression_coeffs = self._take_rows(coeffs[i], tables["prod_rows"][i])
         return coeffs
 
+    def _bucket_seg(self, products: Sequence[Product]) -> torch.Tensor:
+        """A bucket's netting sets [P] on the device, built at its first fit."""
+        seg = self._bucket_segs.get(id(products[0]))
+        if seg is None:
+            seg = torch.as_tensor([self.product_to_netting_set_idx[p.product_id]
+                                   for p in products], device=self.device)
+            self._bucket_segs[id(products[0])] = seg
+        return seg
+
     @staticmethod
     def _exercise_span(products: Sequence[Product], tables, phase: str):
         """The ``exercise`` span of one scan over a bucket's event tables."""
@@ -1038,97 +1041,14 @@ class SimulationController:
             exposures = torch.gather(exposures, 1, rows[:, :, None].expand(-1, -1, n))
         return cfs, exposures
 
-    # -- the storage kernel (ops/storage_scan.py) -------------------------------------
-    #
-    # Every storage deal of the book in one launch per phase, where no
-    # derivative flows through the scan (storage_scan.engages): each deal reads
-    # its own slice of flat tables, so the buckets' shared shapes are not
-    # needed.  The torch scans stay the route of the CPU, of AD, of a path
-    # sharding and of simulate_exercise_states.
-
-    def _storage_kernel_engages(self) -> bool:
-        """Whether this controller's storage deals may take the kernel
-        (storage_scan.engages: a CUDA device, no path sharding, float64, a
-        polynomial basis of at most 4 columns)."""
-        return storage_scan.engages(self.device, self.regression_function, self.path_sharding)
-
-    def _storage_kernel_split(self, buckets, resolved):
-        """(storage deals for the kernel, the buckets left to the torch scans):
-        no deals where a derivative flows through their observations."""
-        deals = [p for bucket in buckets for p in bucket if storage_scan.kernel_deal(p)]
-        if not deals or not self._storage_kernel_engages():
-            return [], buckets
-        _, handles = self._storage_pack(deals)
-        if storage_scan.gradient_flows([resolved[0][h] for h in handles]):
-            return [], buckets
-        return deals, [b for b in buckets if not storage_scan.kernel_deal(b[0])]
-
-    def _storage_pack(self, deals: Sequence[Product]):
-        """(the deals' packed tables on the host, the handles of the rows of
-        their observation table), built once per controller."""
-        key = tuple(id(p) for p in deals)
-        if key not in self._storage_packs:
-            def observation_keys(product, t, i):
-                asset = product.asset_ids[0]
-                if i is None:
-                    return (self.spot_requests[(t, asset)].handle,
-                            self.numeraire_requests[(t, "numeraire")].handle)
-                return product.spot_requests[(i, asset)].handle, product.numeraire_requests[i].handle
-
-            self._storage_packs[key] = storage_scan.pack(
-                deals, self.exposure_timeline, self.regression_function.get_degree(),
-                observation_keys)
-        return self._storage_packs[key]
-
-    def _storage_plan(self, deals: Sequence[Product]) -> "_StoragePlan":
-        """The deals' tables on the device, uploaded once per controller."""
-        key = tuple(id(p) for p in deals)
-        plan = self._storage_plans.get(key)
-        if plan is None:
-            packed, handles = self._storage_pack(deals)
-            ns_of = [self.product_to_netting_set_idx[p.product_id] for p in deals]
-            plan = _StoragePlan(storage_scan.upload(packed, self.device), handles,
-                                torch.as_tensor(ns_of, device=self.device),
-                                [None if len(rows) == events
-                                 else torch.as_tensor(rows, device=self.device)
-                                 for rows, events in zip(packed.prod_rows,
-                                                         packed.deals[:, storage_scan.EVENTS])])
-            self._storage_plans[key] = plan
-        return plan
-
-    def _storage_observations(self, plan: "_StoragePlan", resolved, num_paths: int):
-        """The deals' observation table [U, N] of one phase."""
-        return torch.stack([torch.broadcast_to(resolved[0][h], (num_paths,))
-                            for h in plan.handles])
-
-    @staticmethod
-    def _storage_span(plan: "_StoragePlan", phase: str):
-        """The ``exercise`` span of one kernel launch over every deal."""
-        packed = plan.tables.packed
-        return tracing.span("exercise", kind="Storage", products=packed.num_deals,
-                            steps=packed.max_events, phase=phase, route="kernel")
-
-    def _fit_storage_kernel(self, deals: Sequence[Product], resolved):
-        """The fit of every deal on pre-simulation paths: the flat
-        coefficients; each deal's ``regression_coeffs`` are its own dates'
-        rows of them."""
-        plan = self._storage_plan(deals)
-        obs = self._storage_observations(plan, resolved, self._local(self.num_paths_presim))
-        with self._storage_span(plan, "fit"):
-            coeffs, _ = storage_scan.storage_fit(plan.tables, obs)
-        views = storage_scan.deal_coefficients(plan.tables.packed, coeffs)
-        for product, view, rows in zip(deals, views, plan.prod_rows):
-            product.regression_coeffs = view if rows is None else view.index_select(0, rows)
-        return coeffs
-
-    def _evaluate_storage_kernel(self, deals: Sequence[Product], coeffs, resolved):
-        """Every deal on main-simulation paths: (cashflows [D, N], exposure
-        profiles [D, T_exp, N] or None)."""
-        plan = self._storage_plan(deals)
-        obs = self._storage_observations(plan, resolved, self._local(self.num_paths_mainsim))
-        want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
-        with self._storage_span(plan, "value"):
-            return storage_scan.storage_value(plan.tables, obs, coeffs, want)
+    def _observation_handles(self, product: Product, t: float, i: Optional[int]):
+        """The (spot, numeraire) request handles an exercise product reads at
+        time t: of its own date i, or of the exposure date t (i None)."""
+        asset = product.asset_ids[0]
+        if i is None:
+            return (self.spot_requests[(t, asset)].handle,
+                    self.numeraire_requests[(t, "numeraire")].handle)
+        return product.spot_requests[(i, asset)].handle, product.numeraire_requests[i].handle
 
     def simulate_exercise_states(self, product: Product) -> np.ndarray:
         """Realized states [len(product timeline), N] of one exercise product
@@ -1307,23 +1227,13 @@ class SimulationController:
         if self._batches and tables is not None:
             cfs_acc = self._evaluate_batches(tables, cfs_acc, exp_acc)
             done.update(p.product_id for p in self.products if id(p) in self._batched_ids)
-        for products, coeffs in fits["buckets"]:
+        for products, seg, value in fits["exercise"]:
             with tracing.span("value", exercise_bucket=type(products[0]).__name__,
                               products=len(products)):
-                cfs_p, exp_p = self._evaluate_exercise_bucket(products, coeffs, resolved)
+                cfs_p, exp_p = value(resolved)
                 ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
-                cfs_acc = self._add_exercise_values(
-                    ns_of, torch.as_tensor(ns_of, device=self.device), cfs_p, exp_p, cfs_acc,
-                    exp_acc)
+                cfs_acc = self._add_exercise_values(ns_of, seg, cfs_p, exp_p, cfs_acc, exp_acc)
             done.update(p.product_id for p in products)
-        if fits.get("storage") is not None:
-            deals, coeffs = fits["storage"]
-            with tracing.span("value", exercise_bucket="Storage", products=len(deals)):
-                cfs_p, exp_p = self._evaluate_storage_kernel(deals, coeffs, resolved)
-                ns_of = [self.product_to_netting_set_idx[p.product_id] for p in deals]
-                cfs_acc = self._add_exercise_values(ns_of, self._storage_plan(deals).seg, cfs_p,
-                                                    exp_p, cfs_acc, exp_acc)
-            done.update(p.product_id for p in deals)
         cfs_rows = list(cfs_acc.unbind(0))
         for prod_idx, product in enumerate(self.products):
             if product.product_id in done:
@@ -1372,8 +1282,11 @@ class SimulationController:
 
     def _fit_regressions(self, params, resolved_pre, tables_pre=None):
         """Every fit on the pre-simulation (controller.py:1413-1432): the
-        family batches' fits, the exercise buckets' scans and the
-        per-product exposure fits."""
+        family batches' fits, the per-product exposure fits ("exposure") and
+        the exercise executors ("exercise"): the torch scans' buckets and the
+        storage kernel's deals, each as (products, their netting sets on the
+        device, value(resolved) -> (cashflows [P, N], exposure profiles [P,
+        T_exp, N] or None) on the main simulation)."""
         if self._batches:
             ctx = self._exposure_ctx()
             for batch in self._batches:
@@ -1384,15 +1297,22 @@ class SimulationController:
                     with tracing.span("fit", family=_family(batch), products=len(batch.products)):
                         batch.fit_exposure(tables_pre, ctx)
         buckets, plain = self._exercise_scan_groups()
-        deals, buckets = self._storage_kernel_split(buckets, resolved_pre)
-        fits = {"buckets": [], "exposure": {}, "storage": None}
-        if deals:
-            with tracing.span("fit", exercise_bucket="Storage", products=len(deals)):
-                fits["storage"] = (deals, self._fit_storage_kernel(deals, resolved_pre))
+        kernel, buckets = self._book_deals.route(buckets, resolved_pre)
+        fits = {"exercise": [], "exposure": {}}
         for bucket in buckets:
             with tracing.span("fit", exercise_bucket=type(bucket[0]).__name__,
                               products=len(bucket)):
-                fits["buckets"].append((bucket, self._fit_exercise_bucket(bucket, resolved_pre)))
+                coeffs = self._fit_exercise_bucket(bucket, resolved_pre)
+            fits["exercise"].append((bucket, self._bucket_seg(bucket), lambda r, b=bucket, c=coeffs:
+                                     self._evaluate_exercise_bucket(b, c, r)))
+        if kernel is not None:
+            with tracing.span("fit", exercise_bucket="Storage", products=len(kernel.products)):
+                coeffs = kernel.fit(resolved_pre, self._local(self.num_paths_presim))
+            n = self._local(self.num_paths_mainsim)
+            want = (self.risk_metrics.requires_exposure_profiles()
+                    and len(self.exposure_timeline) > 0)
+            fits["exercise"].append((kernel.products, kernel.seg,
+                                     lambda r, c=coeffs: kernel.value(r, c, n, want)))
         for product in plain:
             with tracing.span("fit", product=type(product).__name__, products=1):
                 fits["exposure"][product.product_id] = self._perform_regression_for_product(
@@ -1401,7 +1321,7 @@ class SimulationController:
 
     def _compute(self, params, kernel_noise=None):
         try:
-            fits = {"buckets": [], "exposure": {}}
+            fits = {"exercise": [], "exposure": {}}
             if self.requires_regression:
                 resolved_pre, tables_pre = self._simulate_and_resolve(
                     params, self.num_paths_presim, rng.PHASE_PRESIM, kernel_noise)

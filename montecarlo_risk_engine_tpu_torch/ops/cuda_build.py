@@ -8,6 +8,11 @@ A build may add flags (``extra``): K2 is built once per block tuple, its
 slot roles given as ``-D`` constants.  Nothing is compiled when a module is
 imported: machines without ``nvcc`` import the package and run the plain
 versions on CPU tensors.
+
+The wrappers share one calling convention (:func:`bind`, :func:`check`,
+:func:`ptr`, :func:`upload`): a kernel's C function gets its argument types
+at its first call and returns a ``cudaError_t``, which raises when not 0;
+host tables reach the card through pinned memory, with no sync.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -106,3 +114,33 @@ def load_libraries(builds: Iterable[Build]) -> Dict[Build, BuiltLibrary]:
 def load_library(name: str, extra: Tuple[str, ...] = ()) -> BuiltLibrary:
     """Compile (if needed) and load ``csrc/<name>.cu`` with ``extra`` flags."""
     return load_libraries([(name, extra)])[name, tuple(extra)]
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence):
+    """``lib``'s C function ``symbol``, its ``argtypes`` and its
+    ``cudaError_t`` result type set at the first call."""
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise for a launch's non-zero ``cudaError_t``."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {rc}")
+
+
+def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address, None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: to the card through pinned memory, with
+    no sync; a plain copy elsewhere."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)

@@ -173,25 +173,19 @@ def heston_ladder_paths_reference(rung: str, params, timeline: Sequence[float], 
     return torch.stack(states)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.mcre_heston_ladder
-    if fn.argtypes is not None:  # bound at an earlier call
-        return fn
-    fn.argtypes = [
-        ctypes.c_int, ctypes.c_void_p,                       # rung, states
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # dts, points, steps
-        ctypes.c_uint32,                                     # num_paths
-        ctypes.c_void_p,                                     # params [7] f32
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,   # seed, phase, generation
-        ctypes.c_void_p,                                     # stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+# mcre_heston_ladder's arguments.
+_ARGS = (
+    ctypes.c_int, ctypes.c_void_p,                       # rung, states
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # dts, points, steps
+    ctypes.c_uint32,                                     # num_paths
+    ctypes.c_void_p,                                     # params [7] f32
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,   # seed, phase, generation
+    ctypes.c_void_p,                                     # stream
+)
 
 
 def _launch(rung, params, timeline, num_paths, num_steps, seed, phase, generation):
-    built = cuda_build.load_library("heston_ladder")
-    fn = _bind(built.lib)
+    fn = cuda_build.bind(cuda_build.load_library("heston_ladder").lib, "mcre_heston_ladder", _ARGS)
     device = params[0].device
     n_pts = len(timeline)
     states = torch.empty((n_pts, num_paths, 2), dtype=torch.float32, device=device)
@@ -202,8 +196,7 @@ def _launch(rung, params, timeline, num_paths, num_steps, seed, phase, generatio
                     n_pts, num_steps, num_paths, prm.data_ptr(), seed & 0xFFFFFFFF,
                     phase & 0xFFFFFFFF, generation & 0xFFFFFFFF,
                     torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"heston_ladder_paths: CUDA launch failed with cudaError_t {rc}")
+        cuda_build.check(rc, "heston_ladder_paths")
         heston_ladder_paths.rung_launches[rung] += 1
     return states
 

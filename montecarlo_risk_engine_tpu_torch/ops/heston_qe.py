@@ -180,22 +180,17 @@ def heston_qe_paths_reference(
     return out, torch.stack(zs), torch.stack(us)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.mcre_heston_qe_paths
-    if fn.argtypes is not None:  # bound at an earlier call
-        return fn
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # states, z, u
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # dts, points, steps
-        ctypes.c_uint32,                                     # num_paths
-        ctypes.c_void_p,                                     # params [7] f32
-        ctypes.c_uint32, ctypes.c_uint32,                    # seed, phase
-        ctypes.c_uint32, ctypes.c_uint32,                    # path offset, stride
-        ctypes.c_int, ctypes.c_int,                          # smoothing, emit
-        ctypes.c_void_p,                                     # stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+# mcre_heston_qe_paths's arguments.
+_ARGS = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # states, z, u
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # dts, points, steps
+    ctypes.c_uint32,                                     # num_paths
+    ctypes.c_void_p,                                     # params [7] f32
+    ctypes.c_uint32, ctypes.c_uint32,                    # seed, phase
+    ctypes.c_uint32, ctypes.c_uint32,                    # path offset, stride
+    ctypes.c_int, ctypes.c_int,                          # smoothing, emit
+    ctypes.c_void_p,                                     # stream
+)
 
 
 def kernel_inputs(params, timeline: Sequence[float], num_steps: int,
@@ -211,8 +206,7 @@ def kernel_inputs(params, timeline: Sequence[float], num_steps: int,
 
 def _launch(params, timeline, num_paths, num_steps, seed, phase, calibration_date,
             smoothing, emit_noise, path_offset=0, path_stride=1):
-    built = cuda_build.load_library("heston_qe")
-    fn = _bind(built.lib)
+    fn = cuda_build.bind(cuda_build.load_library("heston_qe").lib, "mcre_heston_qe_paths", _ARGS)
     device = params[0].device
     n_pts = len(timeline)
     states = torch.empty((n_pts, num_paths, 2), dtype=torch.float32, device=device)
@@ -224,17 +218,14 @@ def _launch(params, timeline, num_paths, num_steps, seed, phase, calibration_dat
         prm, table = kernel_inputs(params, timeline, num_steps, calibration_date)
         with torch.cuda.device(device):
             rc = fn(
-                states.data_ptr(),
-                None if z is None else z.data_ptr(),
-                None if u is None else u.data_ptr(),
+                states.data_ptr(), cuda_build.ptr(z), cuda_build.ptr(u),
                 ctypes.cast(table, ctypes.c_void_p), n_pts, num_steps, num_paths,
                 prm.data_ptr(),
                 seed & 0xFFFFFFFF, phase & 0xFFFFFFFF, path_offset, path_stride,
                 int(smoothing), int(emit_noise),
                 torch.cuda.current_stream(device).cuda_stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"heston_qe_paths: CUDA launch failed with cudaError_t {rc}")
+        cuda_build.check(rc, "heston_qe_paths")
         heston_qe_paths.launches += 1
         if emit_noise:
             heston_qe_paths.emit_launches += 1

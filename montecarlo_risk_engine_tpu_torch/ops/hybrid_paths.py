@@ -266,15 +266,6 @@ def _table_groups(blocks: Sequence[KernelBlock]):
     return groups
 
 
-def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; to the card through pinned memory, with
-    no sync."""
-    host = torch.from_numpy(array)
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host.to(device)
-
-
 def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
                   num_steps: int, calibration_date: float = 0.0) -> torch.Tensor:
     """[T * num_steps, table_width] float32 on the device of ``params``: per
@@ -294,7 +285,7 @@ def substep_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[floa
     once, so no parameter crosses to the host.  The plain version of the
     table prologue of csrc/hybrid_paths.cu."""
     device = params[0].device
-    dev = _upload(_host_columns(blocks, timeline, num_steps, calibration_date), device)
+    dev = cuda_build.upload(_host_columns(blocks, timeline, num_steps, calibration_date), device)
     return table_columns(blocks, dev, params, calibration_date)
 
 
@@ -416,7 +407,7 @@ def table_inputs(blocks: Tuple[KernelBlock, ...], timeline: Tuple[float, ...], n
     ints = lambda xs: (ctypes.c_int * max(len(xs), 1))(*xs)
     init = _initial_columns(blocks, calibration_date)
     return TableInputs(
-        host.shape[0], table_width, state_dim, _upload(host, device),
+        host.shape[0], table_width, state_dim, cuda_build.upload(host, device),
         (len(groups), *(ints([g[i] for g in groups]) for i in range(4))),
         (ints([c[0] for c in init]), ints([int(c[1]) for c in init]),
          (ctypes.c_double * state_dim)(*(float(c[2]) for c in init))))
@@ -582,41 +573,29 @@ def _check_args(blocks, chol, params, num_paths, num_steps, path_offset=0, path_
     rng.check_path_stride(num_paths, path_offset, path_stride)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.mcre_hybrid_paths
-    if fn.argtypes is not None:  # bound at an earlier call
-        return fn
-    int_p = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, params, table
-        ctypes.c_void_p,                                       # init
-        ctypes.c_int, int_p, int_p, int_p, int_p, int_p, int_p,  # slots: role, pa, pb, tcol, oa, ob
-        ctypes.POINTER(ctypes.c_float),                        # chol
-        ctypes.c_int, ctypes.c_int,                            # state_dim, table_width
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint32,           # points, steps, paths
-        ctypes.c_uint32, ctypes.c_uint32,                      # seed, phase
-        ctypes.c_uint32, ctypes.c_uint32,                      # path offset, stride
-        ctypes.c_void_p,                                       # stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _bind_table(lib: ctypes.CDLL):
-    fn = lib.mcre_hybrid_table
-    if fn.argtypes is not None:
-        return fn
-    int_p = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # workspace, host, params
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,              # rows, host_width, table_width
-        ctypes.c_int, ctypes.c_int,                            # num_params, state_dim
-        ctypes.c_int, int_p, int_p, int_p, int_p,              # groups: kind, pbase, hcol, tcol
-        int_p, int_p, ctypes.POINTER(ctypes.c_double),         # init: src, log, const
-        ctypes.c_double, ctypes.c_void_p,                      # calibration date, stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+_INT_P = ctypes.POINTER(ctypes.c_int)
+# mcre_hybrid_paths's arguments.
+_ARGS = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, params, table
+    ctypes.c_void_p,                                       # init
+    ctypes.c_int, _INT_P, _INT_P, _INT_P,                  # slots: role, pa, pb,
+    _INT_P, _INT_P, _INT_P,                                # tcol, oa, ob
+    ctypes.POINTER(ctypes.c_float),                        # chol
+    ctypes.c_int, ctypes.c_int,                            # state_dim, table_width
+    ctypes.c_int, ctypes.c_int, ctypes.c_uint32,           # points, steps, paths
+    ctypes.c_uint32, ctypes.c_uint32,                      # seed, phase
+    ctypes.c_uint32, ctypes.c_uint32,                      # path offset, stride
+    ctypes.c_void_p,                                       # stream
+)
+# mcre_hybrid_table's arguments.
+_TABLE_ARGS = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # workspace, host, params
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,              # rows, host_width, table_width
+    ctypes.c_int, ctypes.c_int,                            # num_params, state_dim
+    ctypes.c_int, _INT_P, _INT_P, _INT_P, _INT_P,          # groups: kind, pbase, hcol, tcol
+    _INT_P, _INT_P, ctypes.POINTER(ctypes.c_double),       # init: src, log, const
+    ctypes.c_double, ctypes.c_void_p,                      # calibration date, stream
+)
 
 
 def kernel_inputs(blocks: Sequence[KernelBlock], params, timeline: Sequence[float],
@@ -634,16 +613,18 @@ def _slots_of(blocks: Sequence[KernelBlock], chol):
     return slot_inputs(tuple(blocks), chol64.tobytes())
 
 
-def _run_table(fn, tab: TableInputs, params64: torch.Tensor, calibration_date: float):
-    """Launch the prologue: (table, float32 parameters, initial state)."""
+def _run_table(lib: ctypes.CDLL, tab: TableInputs, params64: torch.Tensor,
+               calibration_date: float):
+    """Launch the prologue of K2's build ``lib``: (table, float32
+    parameters, initial state)."""
+    fn = cuda_build.bind(lib, "mcre_hybrid_table", _TABLE_ARGS)
     n_par = params64.shape[0]
     size = tab.rows * tab.table_width
     ws = torch.empty(size + n_par + tab.state_dim, dtype=torch.float32, device=params64.device)
     rc = fn(ws.data_ptr(), tab.host.data_ptr(), params64.data_ptr(), tab.rows,
             tab.host.shape[1], tab.table_width, n_par, tab.state_dim, *tab.groups, *tab.init,
             calibration_date, torch.cuda.current_stream(ws.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hybrid_table: CUDA launch failed with cudaError_t {rc}")
+    cuda_build.check(rc, "hybrid_table")
     hybrid_table.launches += 1
     return ws[:size].view(tab.rows, tab.table_width), ws[size:size + n_par], ws[size + n_par:]
 
@@ -662,10 +643,9 @@ def hybrid_table(blocks: Sequence[KernelBlock], params, timeline: Sequence[float
                 initial_state(blocks, params, calibration_date))
     if device.type != "cuda":
         raise ValueError(f"hybrid_table: unsupported device {device}")
-    fn = _bind_table(_library(blocks))
     tab, params64 = kernel_inputs(blocks, params, timeline, num_steps, calibration_date)
     with torch.cuda.device(device):
-        return _run_table(fn, tab, params64, float(calibration_date))
+        return _run_table(_library(blocks), tab, params64, float(calibration_date))
 
 
 hybrid_table.launches = 0  # prologue launches
@@ -674,7 +654,7 @@ hybrid_table.launches = 0  # prologue launches
 def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
             calibration_date, path_offset=0, path_stride=1):
     lib = _library(blocks)
-    fn = _bind(lib)
+    fn = cuda_build.bind(lib, "mcre_hybrid_paths", _ARGS)
     tab, params64 = kernel_inputs(blocks, params, timeline, num_steps, calibration_date)
     slots = _slots_of(blocks, chol)
     device = params64.device
@@ -683,15 +663,14 @@ def _launch(blocks, chol, params, timeline, num_paths, num_steps, seed, phase,
     if n_pts == 0:
         return out
     with torch.cuda.device(device):
-        table, prm, init = _run_table(_bind_table(lib), tab, params64, float(calibration_date))
+        table, prm, init = _run_table(lib, tab, params64, float(calibration_date))
         rc = fn(
             out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(), *slots,
             tab.state_dim, tab.table_width, n_pts, num_steps, num_paths,
             seed & 0xFFFFFFFF, phase & 0xFFFFFFFF, path_offset, path_stride,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"hybrid_paths: CUDA launch failed with cudaError_t {rc}")
+    cuda_build.check(rc, "hybrid_paths")
     hybrid_paths.launches += 1
     return out
 

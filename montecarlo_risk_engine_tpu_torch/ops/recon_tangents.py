@@ -262,23 +262,18 @@ def load_builds(layout: Layout, tangent_counts: Sequence[int]):
         [("recon_tangents", build_flags(layout, c)) for c in dict.fromkeys(tangent_counts)])
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.mcre_recon_tangents
-    if fn.argtypes is not None:  # bound at an earlier call
-        return fn
-    int_p = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, z, steps
-        ctypes.c_void_p, ctypes.c_void_p,                      # params, params_t
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # psi, psi_t, chol
-        ctypes.c_int, ctypes.c_int,                            # slots, tangents
-        int_p, int_p, int_p, int_p, int_p,                     # role, pa, pb, oa, ob
-        ctypes.c_int, int_p,                                   # state_dim, init
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,              # params, dense steps, coarse
-        ctypes.c_uint32, ctypes.c_void_p,                      # paths, stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+_INT_P = ctypes.POINTER(ctypes.c_int)
+# mcre_recon_tangents's arguments.
+_ARGS = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # out, z, steps
+    ctypes.c_void_p, ctypes.c_void_p,                      # params, params_t
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # psi, psi_t, chol
+    ctypes.c_int, ctypes.c_int,                            # slots, tangents
+    _INT_P, _INT_P, _INT_P, _INT_P, _INT_P,                # role, pa, pb, oa, ob
+    ctypes.c_int, _INT_P,                                  # state_dim, init
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,              # params, dense steps, coarse
+    ctypes.c_uint32, ctypes.c_void_p,                      # paths, stream
+)
 
 
 @functools.lru_cache(maxsize=32)
@@ -288,19 +283,16 @@ def _descriptors(layout: Layout):
             ints(layout.ob), layout.state_dim, ints(layout.init))
 
 
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
-
-
 def _launch(layout, steps, z, params, psi, chol, params_t, psi_t, out, c):
-    fn = _bind(load_builds(layout, [c])["recon_tangents", build_flags(layout, c)].lib)
+    lib = load_builds(layout, [c])["recon_tangents", build_flags(layout, c)].lib
+    fn = cuda_build.bind(lib, "mcre_recon_tangents", _ARGS)
     role, pa, pb, oa, ob, dim, init = _descriptors(layout)
-    rc = fn(out.data_ptr(), z.data_ptr(), steps.data_ptr(), params.data_ptr(), _ptr(params_t),
-            _ptr(psi), _ptr(psi_t), chol.data_ptr(), len(layout.roles), c, role, pa, pb, oa,
+    ptr = cuda_build.ptr
+    rc = fn(out.data_ptr(), z.data_ptr(), steps.data_ptr(), params.data_ptr(), ptr(params_t),
+            ptr(psi), ptr(psi_t), chol.data_ptr(), len(layout.roles), c, role, pa, pb, oa,
             ob, dim, init, params.shape[0], steps.shape[0], layout.num_coarse, z.shape[1],
             torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"recon_tangents: CUDA launch failed with cudaError_t {rc}")
+    cuda_build.check(rc, "recon_tangents")
     recon_planes.launches[c] += 1
 
 
@@ -420,12 +412,9 @@ class _Recon(torch.autograd.Function):
 def _on_device(steps: bytes, times: Tuple[float, ...], device: torch.device):
     """The step table and the dense times on ``device`` (float64), uploaded
     once per plan and device through pinned memory, with no sync."""
-    out = []
-    for host in (np.frombuffer(steps, dtype=np.float64).reshape(-1, 4), np.asarray(times)):
-        host = torch.from_numpy(np.array(host, dtype=np.float64))
-        out.append(host.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
-                   else host.to(device))
-    return tuple(out)
+    return tuple(cuda_build.upload(np.array(host, dtype=np.float64), device)
+                 for host in (np.frombuffer(steps, dtype=np.float64).reshape(-1, 4),
+                              np.asarray(times)))
 
 
 def model_blocks(model, scheme):

@@ -31,8 +31,10 @@ CPU tensors the plain version has the CPU's bits (true divisions, LAPACK).
 
 :func:`storage_fit` and :func:`storage_value` dispatch on the device: CPU
 tensors run the plain version, CUDA tensors launch the kernel (counted in
-``launches``) or raise.  :func:`engages` and :func:`gradient_flows` are the
-controller's route rule.
+``launches``) or raise.  :class:`BookDeals` is the controller's executor of
+a book's deals: it owns their tables on the host and on the device, and its
+``route`` is the route rule (:func:`engages` and :func:`gradient_flows`),
+whose one test seam is :data:`_KERNEL_DEVICES`.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from typing import Callable, Hashable, List, NamedTuple, Optional, Sequence, Tup
 import numpy as np
 import torch
 
+from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.config import real_dtype
 from montecarlo_risk_engine_tpu_torch.metrics.metrics import fixed_tree_sum
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
@@ -67,8 +70,9 @@ CURVES = ("inj_pts", "inj_rates", "wd_pts", "wd_rates")
 FIRST_ROW, EVENTS, STATES, INJ_POINTS, WD_POINTS, FIRST_COEF = range(6)
 SPOT_ROW, NUM_ROW, EXP_SLOT = range(3)
 
-# Device types on which the controller takes the kernel (a test seam: the
-# CPU tests add "cpu" to run the route's glue on the plain version).
+# Device types on which the kernel takes a book's deals: the one test seam of
+# the route (the CPU tests add "cpu" to run its glue on the plain version; an
+# empty tuple forces the torch scans).
 _KERNEL_DEVICES = ("cuda",)
 
 launches = collections.Counter()  # kernel launches by phase ("fit", "value")
@@ -174,20 +178,6 @@ class Tables(NamedTuple):
     curves: torch.Tensor
 
 
-def upload(packed: Packed, device) -> Tables:
-    """The tables on ``device`` (once per book: they depend on the deals and
-    the exposure dates only), through pinned memory on a card."""
-    device = torch.device(device)
-
-    def put(a):
-        host = torch.from_numpy(np.ascontiguousarray(a))
-        return host.pin_memory().to(device, non_blocking=True) if device.type == "cuda" \
-            else host.to(device)
-
-    return Tables(packed, put(packed.deals), put(packed.rows), put(packed.consts),
-                  put(packed.curves))
-
-
 def deal_coefficients(packed: Packed, coeffs: torch.Tensor) -> List[torch.Tensor]:
     """Each deal's coefficients [events, states, deg]: views of ``coeffs``."""
     out = []
@@ -220,6 +210,99 @@ def engages(device, regression_function, sharding) -> bool:
             and real_dtype() == torch.float64
             and type(regression_function) is PolynomialRegression
             and regression_function.get_degree() <= MAX_BASIS)
+
+
+class BookDeals:
+    """The kernel's executor of a book's storage deals, built once per
+    controller: the deals among ``products`` (the book's exercise-scan
+    products) that the kernel takes (:func:`kernel_deal`), each in its
+    netting set ``ns_of``.  ``observation_keys`` is :func:`pack`'s.
+
+    It packs the deals' tables at its first use (the request handles exist
+    then) and uploads them to ``device``, with each deal's netting set
+    (``seg``) and the rows of its own dates, at the first :meth:`fit`.
+    :meth:`route` is the route rule; :meth:`fit` and :meth:`value` are one
+    launch each over every deal, in an ``exercise`` span (route
+    "kernel")."""
+
+    def __init__(self, products, ns_of: Sequence[int], exposure_timeline: Sequence[float],
+                 regression_function, observation_keys, device, sharding):
+        taken = [kernel_deal(p) for p in products]
+        self.products = [p for p, t in zip(products, taken) if t]
+        self._ns_of = [ns for ns, t in zip(ns_of, taken) if t]
+        self._exposure_timeline = exposure_timeline
+        self._regression_function = regression_function
+        self._observation_keys = observation_keys
+        self._device, self._sharding = torch.device(device), sharding
+        self.packed: Optional[Packed] = None
+        self.handles: List[Hashable] = []  # the rows of the observation table
+        self.tables: Optional[Tables] = None
+        self.seg: Optional[torch.Tensor] = None
+        self._prod_rows: List[Optional[torch.Tensor]] = []  # None: all of the deal's rows
+
+    def route(self, buckets, resolved):
+        """(these deals if the kernel takes them, else None; the scan
+        buckets left to the torch scans).  The kernel takes every deal where
+        :func:`engages` holds and no derivative flows through the deals'
+        observations in the pre-simulation's ``resolved`` handles
+        (:func:`gradient_flows`)."""
+        if not self.products or not engages(self._device, self._regression_function,
+                                            self._sharding):
+            return None, buckets
+        self._pack()
+        if gradient_flows([resolved[0][h] for h in self.handles]):
+            return None, buckets
+        return self, [b for b in buckets if not kernel_deal(b[0])]
+
+    def _pack(self) -> Packed:
+        if self.packed is None:
+            self.packed, self.handles = pack(self.products, self._exposure_timeline,
+                                             self._regression_function.get_degree(),
+                                             self._observation_keys)
+        return self.packed
+
+    def device_tables(self) -> Tables:
+        """The deals' tables on the device, uploaded at the first call
+        through pinned memory on a card (they depend on the deals and the
+        exposure dates only)."""
+        if self.tables is None:
+            packed = self._pack()
+            self.tables = Tables(packed, *(cuda_build.upload(a, self._device) for a in (
+                packed.deals, packed.rows, packed.consts, packed.curves)))
+            self.seg = torch.as_tensor(self._ns_of, device=self._device)
+            self._prod_rows = [None if len(rows) == events
+                               else torch.as_tensor(rows, device=self._device)
+                               for rows, events in zip(packed.prod_rows, packed.deals[:, EVENTS])]
+        return self.tables
+
+    def observations(self, resolved, num_paths: int) -> torch.Tensor:
+        """The deals' observation table [U, N] of one phase."""
+        return torch.stack([torch.broadcast_to(resolved[0][h], (num_paths,))
+                            for h in self.handles])
+
+    def _span(self, phase: str):
+        return tracing.span("exercise", kind="Storage", products=self.packed.num_deals,
+                            steps=self.packed.max_events, phase=phase, route="kernel")
+
+    def fit(self, resolved, num_paths: int) -> torch.Tensor:
+        """The fit of every deal on the pre-simulation: the flat
+        coefficients; each deal's ``regression_coeffs`` are its own dates'
+        rows of them."""
+        tables = self.device_tables()
+        obs = self.observations(resolved, num_paths)
+        with self._span("fit"):
+            coeffs, _ = storage_fit(tables, obs)
+        views = deal_coefficients(self.packed, coeffs)
+        for product, view, rows in zip(self.products, views, self._prod_rows):
+            product.regression_coeffs = view if rows is None else view.index_select(0, rows)
+        return coeffs
+
+    def value(self, resolved, coeffs: torch.Tensor, num_paths: int, want_exposures: bool):
+        """Every deal on the main simulation: (cashflows [D, N], exposure
+        profiles [D, T_exp, N] or None)."""
+        obs = self.observations(resolved, num_paths)
+        with self._span("value"):
+            return storage_value(self.tables, obs, coeffs, want_exposures)
 
 
 # -- the plain version ----------------------------------------------------------------
@@ -347,26 +430,10 @@ def storage_value_reference(tables: Tables, obs: torch.Tensor, coeffs: torch.Ten
 # -- the kernel -----------------------------------------------------------------------
 
 
-def _bind_fit(lib: ctypes.CDLL):
-    fn = lib.mcre_storage_fit
-    if fn.argtypes is None:  # first call
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_uint32, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bind_value(lib: ctypes.CDLL):
-    fn = lib.mcre_storage_value
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_uint32, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The arguments of mcre_storage_fit and mcre_storage_value.
+_FIT_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _P)
+_VALUE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _P)
 
 
 def _check(tables: Tables, obs: torch.Tensor):
@@ -384,15 +451,10 @@ def _check(tables: Tables, obs: torch.Tensor):
         raise ValueError("storage_scan: the tables and the observations lie on different devices")
 
 
-def _library(device: torch.device) -> ctypes.CDLL:
+def _kernel(symbol: str, args, device: torch.device):
     if device.type != "cuda":
         raise ValueError(f"storage_scan: unsupported device {device}")
-    return cuda_build.load_library("storage_scan").lib
-
-
-def _raise_for(rc: int, phase: str):
-    if rc != 0:
-        raise RuntimeError(f"storage_scan {phase}: CUDA launch failed with cudaError_t {rc}")
+    return cuda_build.bind(cuda_build.load_library("storage_scan").lib, symbol, args)
 
 
 def storage_fit(tables: Tables, obs: torch.Tensor, want_normal: bool = False):
@@ -402,7 +464,7 @@ def storage_fit(tables: Tables, obs: torch.Tensor, want_normal: bool = False):
     _check(tables, obs)
     if obs.device.type == "cpu":
         return storage_fit_reference(tables, obs, want_normal)
-    fit = _bind_fit(_library(obs.device))
+    fit = _kernel("mcre_storage_fit", _FIT_ARGS, obs.device)
     packed, obs = tables.packed, obs.contiguous()
     d, s_max, n = packed.num_deals, packed.max_states, obs.shape[1]
     with torch.cuda.device(obs.device):
@@ -410,11 +472,11 @@ def storage_fit(tables: Tables, obs: torch.Tensor, want_normal: bool = False):
         normal = (torch.zeros((packed.rows.shape[0], packed.deg, packed.deg + s_max),
                               dtype=torch.float64, device=obs.device) if want_normal else None)
         carry = torch.empty((d, s_max, n), dtype=torch.float64, device=obs.device)
-        rc = fit(coeffs.data_ptr(), _ptr(normal), carry.data_ptr(), obs.data_ptr(),
+        rc = fit(coeffs.data_ptr(), cuda_build.ptr(normal), carry.data_ptr(), obs.data_ptr(),
                  tables.rows.data_ptr(), tables.consts.data_ptr(), tables.curves.data_ptr(),
                  tables.deals.data_ptr(), d, packed.deg, packed.curves.shape[2], s_max, n,
                  torch.cuda.current_stream(obs.device).cuda_stream)
-    _raise_for(rc, "fit")
+    cuda_build.check(rc, "storage_scan fit")
     launches["fit"] += 1
     return coeffs, normal
 
@@ -431,7 +493,7 @@ def storage_value(tables: Tables, obs: torch.Tensor, coeffs: torch.Tensor,
                          f"({packed.coef_size},) float64")
     if obs.device.type == "cpu":
         return storage_value_reference(tables, obs, coeffs, want_exposures)
-    value = _bind_value(_library(obs.device))
+    value = _kernel("mcre_storage_value", _VALUE_ARGS, obs.device)
     obs, coeffs = obs.contiguous(), coeffs.contiguous()
     d, n = packed.num_deals, obs.shape[1]
     want_exposures = want_exposures and packed.num_exposures > 0
@@ -439,11 +501,11 @@ def storage_value(tables: Tables, obs: torch.Tensor, coeffs: torch.Tensor,
         cfs = torch.empty((d, n), dtype=torch.float64, device=obs.device)
         exposures = (torch.empty((d, packed.num_exposures, n), dtype=torch.float64,
                                  device=obs.device) if want_exposures else None)
-        rc = value(cfs.data_ptr(), _ptr(exposures), coeffs.data_ptr(), obs.data_ptr(),
+        rc = value(cfs.data_ptr(), cuda_build.ptr(exposures), coeffs.data_ptr(), obs.data_ptr(),
                    tables.rows.data_ptr(), tables.consts.data_ptr(), tables.curves.data_ptr(),
                    tables.deals.data_ptr(), d, packed.deg, packed.curves.shape[2],
                    packed.max_states, packed.num_exposures, n,
                    torch.cuda.current_stream(obs.device).cuda_stream)
-    _raise_for(rc, "value")
+    cuda_build.check(rc, "storage_scan value")
     launches["value"] += 1
     return cfs, exposures

@@ -17,7 +17,7 @@ import torch
 
 import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu_torch import SimulationScheme
-from montecarlo_risk_engine_tpu_torch.ops import heston_qe
+from montecarlo_risk_engine_tpu_torch.ops import cuda_build, heston_qe
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as hp
 
 A, E = SimulationScheme.ANALYTICAL, SimulationScheme.EULER
@@ -211,6 +211,30 @@ def test_one_build_per_tuple_of_slot_roles():
     assert len({hp.role_flags(case(name, scheme)[0]) for name, scheme in CASES}) == len(CASES)
 
 
+def test_launch_helper_binds_once_and_raises_a_failed_launch():
+    """The wrappers' calling convention on a C function of the process
+    (libc's ``abs``): the argument types are set at the first ``bind`` and
+    kept after, a non-zero return code raises with the kernel's name, and
+    a host array reaches the CPU as a plain copy."""
+    import ctypes
+
+    lib = ctypes.CDLL(None)
+    fn = cuda_build.bind(lib, "abs", [ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert cuda_build.bind(lib, "abs", [ctypes.c_long]) is fn
+    assert fn.argtypes == [ctypes.c_int]
+    cuda_build.check(fn(0), "hybrid_paths")
+    with pytest.raises(RuntimeError,
+                       match=r"^hybrid_paths: CUDA launch failed with cudaError_t 700$"):
+        cuda_build.check(fn(-700), "hybrid_paths")
+    assert cuda_build.ptr(None) is None
+    x = torch.arange(3.0)
+    assert cuda_build.ptr(x) == x.data_ptr()
+    host = np.arange(6.0).reshape(2, 3).T  # not contiguous
+    on_cpu = cuda_build.upload(host, torch.device("cpu"))
+    assert torch.equal(on_cpu, torch.from_numpy(host.copy())) and on_cpu.is_contiguous()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -224,11 +248,11 @@ def test_a_build_refuses_another_tuple(cuda_device):
     other = [b for b in blocks if b.kind != "hw"]
     params = tuple(p.to(cuda_device) for p in params)
     hp.hybrid_paths(other, np.eye(sum(b.n_sim for b in other)), params, TIMELINE, 64, 1)
-    wrong = hp._bind(hp._library(other))
+    wrong = cuda_build.bind(hp._library(other), "mcre_hybrid_paths", hp._ARGS)
     tab, params64 = hp.kernel_inputs(blocks, params, TIMELINE, STEPS, CAL)
-    table, prm, init = hp._run_table(hp._bind_table(hp._library(blocks)), tab, params64, CAL)
+    table, prm, init = hp._run_table(hp._library(blocks), tab, params64, CAL)
     out = torch.empty((len(TIMELINE), 64, tab.state_dim), device=cuda_device)
     rc = wrong(out.data_ptr(), prm.data_ptr(), table.data_ptr(), init.data_ptr(),
                *hp._slots_of(blocks, chol), tab.state_dim, tab.table_width, len(TIMELINE), STEPS,
-               64, 0, 0, torch.cuda.current_stream().cuda_stream)
+               64, 0, 0, 0, 1, torch.cuda.current_stream().cuda_stream)
     assert rc != 0

@@ -2,12 +2,14 @@
 route in the controller.
 
 On the CPU the kernel's plain version stands in for it: on the packed
-per-deal tables it is held bitwise to the controller's bucketed torch scans
+per-deal tables of the controller's storage executor (``BookDeals``) it is
+held bitwise to the controller's bucketed torch scans
 (``_fit_exercise_bucket`` / ``_evaluate_exercise_bucket``) for storage deals
 of the mixed book's shapes (6-10 grid states, rollouts 0.05 / 0.1 / 0.125,
 end dates 1-2.5), with and without exposure rows; the route's glue (tables,
 observation rows, coefficients as rows of one buffer, netting) is run on it
-by adding the CPU to the kernel's devices (tests/test_torch_exercise.py
+by adding the CPU to the kernel's devices (``_KERNEL_DEVICES``, the route's
+one test seam) (tests/test_torch_exercise.py
 holds that route to the JAX package on its gas books).  The route engages
 only where no derivative flows, without a path sharding, on a CUDA device.
 The card tests (``gpu``) hold the kernel's Gram and right-hand sides
@@ -77,16 +79,23 @@ def torch_scans(c, pre, main):
     return [p for b in buckets for p in b], out
 
 
+def book_deals(c, deals):
+    """The controller's storage executor, whose deals are ``deals``."""
+    book = c._book_deals
+    assert book.products == deals
+    return book
+
+
 def kernel_arithmetic(c, deals, pre, main):
     """The plain version (CPU) or the kernel (CUDA) on the route's tables:
     (per-deal coefficient views, cashflows [D, N], exposures or None)."""
-    plan = c._storage_plan(deals)
-    coeffs, _ = storage_scan.storage_fit(
-        plan.tables, c._storage_observations(plan, pre, c.num_paths_presim))
+    book = book_deals(c, deals)
+    tables = book.device_tables()
+    coeffs, _ = storage_scan.storage_fit(tables, book.observations(pre, c.num_paths_presim))
     want = c.risk_metrics.requires_exposure_profiles()
     cfs, exposures = storage_scan.storage_value(
-        plan.tables, c._storage_observations(plan, main, c.num_paths_mainsim), coeffs, want)
-    return storage_scan.deal_coefficients(plan.tables.packed, coeffs), cfs, exposures
+        tables, book.observations(main, c.num_paths_mainsim), coeffs, want)
+    return storage_scan.deal_coefficients(tables.packed, coeffs), cfs, exposures
 
 
 def assert_same(a, b):
@@ -131,9 +140,9 @@ def test_packed_tables_follow_the_event_tables():
     c = controller(exposures=True)
     pre, _ = both_phases(c)
     deals = [p for b in c._exercise_scan_groups()[0] for p in b]
-    plan = c._storage_plan(deals)
-    packed = plan.tables.packed
-    obs = c._storage_observations(plan, pre, NUM_PATHS)
+    book = book_deals(c, deals)
+    packed = book.device_tables().packed
+    obs = book.observations(pre, NUM_PATHS)
     first = 0
     for d, product in enumerate(deals):
         tables = c._exercise_event_tables([product], pre, NUM_PATHS)
@@ -229,8 +238,9 @@ def wrapped_under_jvp():
     ("jvp", False),
 ])
 def test_route_rule(case, engages):
-    """The controller's rule: ``engages`` on the device, sharding, dtype and
-    basis, and no derivative through the deals' observations."""
+    """The route rule of ``BookDeals.route``: ``engages`` on the device,
+    sharding, dtype and basis, and no derivative through the deals'
+    observations."""
     device = torch.device("cpu" if case == "cpu" else "cuda")
     regression = mt.PolynomialRegression(4 if case == "degree_4" else 2)
     sharding = PathSharding(PathMesh(0, 1, torch.device("cpu"))) if case == "sharding" else None
@@ -264,12 +274,13 @@ def test_kernel_normal_equations_match_plain_version_bitwise(cuda_device):
     c = controller(count=100, exposures=True, num_paths=1000, device="cuda")
     pre, _ = both_phases(c)
     deals = [p for b in c._exercise_scan_groups()[0] for p in b]
-    plan = c._storage_plan(deals)
-    obs = c._storage_observations(plan, pre, 1000)
+    book = book_deals(c, deals)
+    tables = book.device_tables()
+    obs = book.observations(pre, 1000)
     storage_scan.launches.clear()
-    coeffs, normal = storage_scan.storage_fit(plan.tables, obs, want_normal=True)
+    coeffs, normal = storage_scan.storage_fit(tables, obs, want_normal=True)
     assert storage_scan.launches == {"fit": 1}
-    ref_coeffs, ref_normal = storage_scan.storage_fit_reference(plan.tables, obs, True)
+    ref_coeffs, ref_normal = storage_scan.storage_fit_reference(tables, obs, True)
     torch.cuda.synchronize()
     assert_same(normal, ref_normal)
     assert_same(coeffs, ref_coeffs)
@@ -295,16 +306,17 @@ def test_kernel_matches_torch_scan(cuda_device, exposures):
 
 
 @pytest.mark.gpu
-def test_mixed_book_pv_kernel_route_equals_torch_route(cuda_device):
+def test_mixed_book_pv_kernel_route_equals_torch_route(cuda_device, monkeypatch):
     """The whole 50,000-product mixed book at 1,000 + 1,000 paths: the PV
-    on the kernel route against the torch route within 1e-13 relative (the
-    netting's index_add adds in the card's atomic order)."""
+    on the kernel route against the torch route (the kernel's devices
+    emptied) within 1e-13 relative (the netting's index_add adds in the
+    card's atomic order)."""
     def pv(kernel):
         c = mt.SimulationController(*chip_smoke.mixed_book_parts(chip_smoke.MIXED_COUNTS),
                                     1000, 1000, 1, mt.SimulationScheme.ANALYTICAL,
                                     device="cuda")
         if not kernel:
-            c._storage_kernel_engages = lambda: False
+            monkeypatch.setattr(storage_scan, "_KERNEL_DEVICES", ())
         storage_scan.launches.clear()
         value = float(c.run_simulation().get_results("mixed_book", "pv", evaluation_idx=0))
         assert storage_scan.launches == ({"fit": 1, "value": 1} if kernel else {})
