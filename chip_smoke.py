@@ -201,10 +201,11 @@ Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
     python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only
-                           | --recon-only | --storage-scan-only]
+                           | --recon-only | --storage-scan-only | --exercise-scan-only]
 
 (``--examples-only``: phase 7d alone, after building K1 and K2;
-``--recon-only``: phase 3f alone; ``--storage-scan-only``: phase 3g alone.)
+``--recon-only``: phase 3f alone; ``--storage-scan-only``: phase 3g alone;
+``--exercise-scan-only``: phase 3h alone.)
 
 (``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
 rank of phase 6b, started by the smoke itself.)
@@ -230,7 +231,7 @@ from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
-from montecarlo_risk_engine_tpu_torch.ops import recon_tangents, storage_scan
+from montecarlo_risk_engine_tpu_torch.ops import exercise_scan, recon_tangents, storage_scan
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
@@ -3078,6 +3079,169 @@ def storage_scan_phase():
     return rows
 
 
+def mixed_exercise_options(counts):
+    """The mixed book's Americans and FlexiCalls in ``counts`` (every fourth
+    American gated in the money) and three Bermudans (a put, a gated call,
+    a call)."""
+    book = build_book(list(ASSETS), {family: counts.get(family, 0) for family in MIXED_COUNTS})
+    for i, american in enumerate(book["american"]):
+        american.itm_only_regression = i % 4 == 1
+    put, call = mt.OptionType.PUT, mt.OptionType.CALL
+    bermudans = [mt.BermudanOption(mt.Equity("asset_1"), dates, k, kind, asset_id="asset_1",
+                                   itm_only_regression=itm)
+                 for dates, k, kind, itm in (([0.3, 0.6, 1.0], 105.0, put, False),
+                                             ([0.25, 0.7, 1.0], 95.0, call, True),
+                                             ([0.4, 0.8, 1.2], 100.0, call, False))]
+    return book["american"] + book["flexicall"] + bermudans
+
+
+def two_netting_sets(products):
+    """``products`` in two netting sets, the first half and the rest."""
+    half = len(products) // 2
+    return [mt.NettingSet(name="first", products=products[:half]),
+            mt.NettingSet(name="second", products=products[half:])]
+
+
+def exercise_scan_phase():
+    """Phase 3h: the equity exercise scan kernel (csrc/exercise_scan.cu) at
+    the mixed book's shapes: its 1,800 Americans (every fourth gated in the
+    money here) and 700 FlexiCalls, with three Bermudans, at MIXED_PATHS
+    paths, with EPE on six dates (exposure rows) and without.  Its build
+    (ptxas frames printed); the coefficients, per-product cashflows and
+    exposures bitwise the torch batches' (``ExerciseEquityBatch.fit`` /
+    ``evaluate`` on the card), one launch a phase; call, launch-only and
+    wrapper times beside the operations bound; then two warm runs of the
+    whole mixed book with the route on (one fit and one value launch a
+    run; its ``exercise`` spans: route "kernel" over every equity exercise
+    product in each phase, no torch batch's) and off (the torch batches),
+    PV to 1e-15 relative.  Returns the kernels' JSON rows."""
+    t0 = time.perf_counter()
+    built = cuda_build.load_library("exercise_scan")
+    how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
+    print(f"[build] exercise_scan: {how} -> {built.path.name}")
+    for kernel, frame in ptxas_frames(built.log).items():
+        print(f"  {kernel}: {frame}")
+    counts = {"american": MIXED_COUNTS["american"], "flexicall": MIXED_COUNTS["flexicall"]}
+    rows, max_abs_err = [], {}
+    for exposures in (True, False):
+        c = mt.SimulationController(
+            two_netting_sets(mixed_exercise_options(counts)), bs_multi_model(),
+            mt.RiskMetrics([mt.PVMetric(), mt.EPEMetric()] if exposures else [mt.PVMetric()],
+                           exposure_timeline=np.linspace(0.0, 2.5, 6) if exposures else None),
+            MIXED_PATHS, MIXED_PATHS, 1, mt.SimulationScheme.ANALYTICAL, device="cuda")
+        c._ensure_plan()
+        params = c.model.initial_params(device=torch.device("cuda"), dtype=torch.float64)
+        with torch.no_grad():
+            _, pre = c._simulate_and_resolve(params, MIXED_PATHS, mt.rng.PHASE_PRESIM)
+            _, main = c._simulate_and_resolve(params, MIXED_PATHS, mt.rng.PHASE_MAINSIM)
+        book = c._book_options
+        check(len(book.products) == len(c.products), "the exercise executor misses a product")
+        tables = book.device_tables()
+        packed, obs, obs_main = tables.packed, book.observations(pre), book.observations(main)
+        exercise_scan.launches.clear()
+        coeffs = exercise_scan.exercise_fit(tables, obs)
+        cfs, exp = exercise_scan.exercise_value(tables, obs_main, coeffs, exposures)
+        check(exercise_scan.launches == {"fit": 1, "value": 1},
+              f"exercise_scan launched {dict(exercise_scan.launches)} for one fit and one value")
+        views = exercise_scan.product_coefficients(packed, coeffs)
+        ctx, p = c._exposure_ctx(), 0
+        with torch.no_grad():
+            for batch in book.batches:
+                batch.fit(pre, ctx)
+                ref_cfs, ref_exp = batch.evaluate(main, ctx)
+                for j, product in enumerate(batch.products):
+                    pairs = [("fit", "coefficients", views[p],
+                              batch._coeffs[:, j, :product.get_num_states()]),
+                             ("value", "cashflows", cfs[p], ref_cfs[j])]
+                    if exposures:
+                        pairs.append(("value", "exposures", exp[p], ref_exp[:, j]))
+                    for phase, what, a, b in pairs:
+                        check(torch.equal(a, b), f"exercise_scan {what} of product {p}: not "
+                                                 "bitwise the torch batches")
+                        max_abs_err[phase] = max(max_abs_err.get(phase, 0.0),
+                                                 float((a - b).abs().max()))
+                    p += 1
+                batch.release()
+        print(f"[exercise_scan] {packed.num_products} products, {packed.rows.shape[0]} event "
+              f"rows{' with exposure rows' if exposures else ''}: coefficients, cashflows"
+              f"{' and exposures' if exposures else ''} bitwise the torch batches")
+        if exposures:
+            continue
+        # operations: the fit's tree-summed products (a product and an add
+        # each) and its step of every state (~2 deg + 8 a state), the value
+        # phase's two continuations and its step a path and event
+        n, deg = MIXED_PATHS, packed.deg
+        row_states = np.repeat(packed.options[:, exercise_scan.STATES],
+                               packed.options[:, exercise_scan.EVENTS])
+        is_prod = packed.rows[:, exercise_scan.IS_PROD]
+        fit_ops = float(n * (2 * (deg + deg * (deg + 1) // 2 + deg * row_states)
+                             + (2 * deg + 8) * row_states * is_prod).sum())
+        value_ops = float(n * (4 * deg + 8) * packed.rows.shape[0])
+        for phase, run, ops in (
+                ("fit", lambda: exercise_scan.exercise_fit(tables, obs), fit_ops),
+                ("value", lambda: exercise_scan.exercise_value(tables, obs_main, coeffs), value_ops)):
+            bound = ops / FP64_OPS_PER_S * 1e3
+            ms, launch_ms, wrapper_ms = call_split(f"exercise_scan {phase}",
+                                                   f"mcre_exercise_{phase}", run, bound)
+            print(f"    {packed.num_products} products, {packed.rows.shape[0]} event rows, {n} "
+                  f"paths: {ops / 1e9:.3f} GFLOP, {bound / launch_ms:.1%} of the operations "
+                  f"bound {bound:.4f} ms")
+            rows.append({"name": f"exercise_scan[{phase}]", "route": "cuda",
+                         "source": "montecarlo_risk_engine_tpu_torch/csrc/exercise_scan.cu",
+                         "replaces": None, "launches": 0, "max_abs_err": max_abs_err[phase],
+                         "ms": ms, "plain_ms": None, "bound_ms": bound, "bound_by": "operations",
+                         "library_ms": None, "launch_ms": launch_ms, "wrapper_ms": wrapper_ms})
+        del pre, main, obs, obs_main, c
+    torch.cuda.empty_cache()
+
+    def mixed_pv(on):
+        """(warm wall, PV, exercise launches, ``exercise`` spans of the
+        equity products of a traced run as (kind, route, phase, products))
+        of the whole mixed book; the route off: the kernel's devices
+        emptied."""
+        book = mt.SimulationController(*mixed_book_parts(MIXED_COUNTS), MIXED_PATHS,
+                                       MIXED_PATHS, 1, mt.SimulationScheme.ANALYTICAL,
+                                       device="cuda")
+        devices = exercise_scan._KERNEL_DEVICES
+        exercise_scan._KERNEL_DEVICES = devices if on else ()
+        try:
+            book.run_simulation()
+            exercise_scan.launches.clear()
+            out = []
+            wall = wall_seconds(lambda: out.append(book.run_simulation()))
+            launched = dict(exercise_scan.launches)
+            tracing.enable()
+            book.run_simulation()
+            spans = [(r.attrs["kind"], r.attrs["route"], r.attrs["phase"], r.attrs["products"])
+                     for r in tracing.take()
+                     if r.name == "exercise" and r.attrs["kind"] != "Storage"]
+        finally:
+            tracing.disable()
+            exercise_scan._KERNEL_DEVICES = devices
+        return (wall, float(out[0].get_results("mixed_book", "pv", evaluation_idx=0)),
+                launched, spans)
+
+    (wall_on, pv_on, launches, spans), (wall_off, pv_off, launches_off, spans_off) = (
+        mixed_pv(True), mixed_pv(False))
+    gap = abs(pv_on - pv_off) / abs(pv_off)
+    products = MIXED_COUNTS["american"] + MIXED_COUNTS["flexicall"]
+    print(f"[exercise route] mixed book at {MIXED_PATHS} + {MIXED_PATHS} paths: wall "
+          f"{wall_on:.3f} s with the kernel, {wall_off:.3f} s on the torch batches; exercise "
+          f"launches a run {launches}; PV {pv_on!r} vs {pv_off!r}, rel gap {gap:.3e}; equity "
+          f"exercise spans {spans} (route off: {len(spans_off)} spans over "
+          f"{sum(p for *_, p in spans_off)} products)")
+    check(launches == {"fit": 1, "value": 1} and not launches_off,
+          f"exercise_scan launched {launches} / {launches_off} a run (route on / off)")
+    check(spans == [("ExerciseEquityBatch", "kernel", "fit", products),
+                    ("ExerciseEquityBatch", "kernel", "value", products)],
+          "the equity exercise spans are not one kernel span a phase over every product")
+    check(gap <= 1e-15, "the exercise kernel route moved the mixed book's PV")
+    for row, phase in zip(rows, ("fit", "value")):
+        row["launches"] = launches.get(phase, 0)
+    print(f"[time] exercise scan phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def reset_k2_counts():
     """K2's counts to 0: the paths kernel's and its table prologue's."""
     hybrid_paths.launches = 0
@@ -3325,6 +3489,10 @@ def main():
     # in the whole mixed book, on and off
     storage_rows = storage_scan_phase()
 
+    # 3h. the equity exercise scan kernel at the mixed book's shapes, then
+    # its route in the whole mixed book, on and off
+    exercise_rows = exercise_scan_phase()
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
@@ -3416,7 +3584,8 @@ def main():
         "launch_ms": k1_launch_ms,
         "wrapper_ms": k1_wrapper_ms,
     }
-    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows + storage_rows}))
+    print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows + storage_rows
+                      + exercise_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3714,6 +3883,9 @@ if __name__ == "__main__":
     elif "--storage-scan-only" in sys.argv[1:]:
         card()
         print(json.dumps({"kernels": storage_scan_phase()}))
+    elif "--exercise-scan-only" in sys.argv[1:]:
+        card()
+        print(json.dumps({"kernels": exercise_scan_phase()}))
     elif "--shard-rank" in sys.argv[1:]:
         shard_rank_main(sys.argv[1:])
     else:

@@ -14,7 +14,9 @@ table-driven computation per group:
   * Bermudan, American and FlexiCall exercise machines on an equity run one
     loop over merged exercise and exposure events with a product-batched
     carry [P, N, S]: batched Gram solves for the LSM fit, a vectorised
-    decision for the valuation;
+    decision for the valuation (on the card, where its route engages, the
+    controller hands every such batch of a book to one kernel launch a
+    phase instead, ops/exercise_scan.py, on the rows these loops read);
   * bonds and swaps collapse into fixed and floating event tables.
 
 Every table (strikes, signs, time indices, netting-set indices) is built on
@@ -437,11 +439,10 @@ class TerminalBatch:
             total = total + torch.cat(pieces, dim=0)
         return total
 
-    def _spot_matrix(self, tables: ObservableTables, asset_ids, tidx_mat, times_mat,
-                     name: str = "spots"):
-        """Spots of per-product observation rows, [P, O, N]: one resolved
-        table per asset over its unique dates, then one gather.  ``name``
-        keys the cached host index tables (one per call site)."""
+    def _spot_plan(self, asset_ids, tidx_mat, times_mat, name: str):
+        """(per asset (asset, unique time indices, their times), the rows
+        [P, O] of the per-product observations in those tables stacked),
+        cached under ``name``."""
         def build():
             out_rows = np.empty(tidx_mat.shape, dtype=np.int64)
             plan, offset = [], 0
@@ -457,7 +458,14 @@ class TerminalBatch:
                 offset += len(uniq)
             return plan, out_rows
 
-        plan, out_rows = self._table(name, build)
+        return self._table(name, build)
+
+    def _spot_matrix(self, tables: ObservableTables, asset_ids, tidx_mat, times_mat,
+                     name: str = "spots"):
+        """Spots of per-product observation rows, [P, O, N]: one resolved
+        table per asset over its unique dates, then one gather.  ``name``
+        keys the cached host index tables (one per call site)."""
+        plan, out_rows = self._spot_plan(asset_ids, tidx_mat, times_mat, name)
         full = torch.cat([tables.rows(AtomicRequestType.SPOT, a, uniq, time_u)
                           for a, uniq, time_u in plan], dim=0)
         index = self._const(f"{name}:rows", lambda: out_rows.ravel(), tables.device, torch.long)
@@ -901,6 +909,22 @@ class ExerciseEquityBatch(TerminalBatch):
         return dict(times=times_mat, tidx=tidx_mat, strikes=strike_mat.T, is_prod=is_prod.T,
                     exp_rows=exp_row_idx, signs=signs, itm=itm,
                     init=np.array([p.get_initial_state() for p in prods]))
+
+    def observation_rows(self, exposure_times):
+        """(host event tables, the (kind, asset, time indices, times) blocks
+        of resolved rows that ``_event_tables`` gathers, and per product and
+        event its spot row and its numeraire row in those blocks stacked,
+        [P, E] each), for ops/exercise_scan.py's flat tables."""
+        name = f"events:{len(exposure_times)}"
+        h = self._table(name, lambda: self._host_events(exposure_times))
+        plan, spot_rows = self._spot_plan([p.get_asset_id() for p in self.products], h["tidx"],
+                                          h["times"], name + ":spots")
+        uniq, inverse, time_u = self._table(name + ":numeraires", lambda: _unique_rows(
+            h["tidx"].ravel(), h["times"].ravel()))
+        blocks = [(AtomicRequestType.SPOT, a, u, t) for a, u, t in plan]
+        blocks.append((AtomicRequestType.NUMERAIRE, "numeraire", uniq, time_u))
+        offset = sum(len(u) for _, u, _ in plan)
+        return h, blocks, spot_rows, offset + inverse.reshape(spot_rows.shape)
 
     def _event_tables(self, tables: ObservableTables, ctx: Optional[ExposureContext]):
         """(spots [E, P, N], numeraires [E, P, N], strikes [E, P], is_prod

@@ -53,7 +53,11 @@ stacked event tables, one per bucket of products of one static signature
 (controller.py:490-876), and the storage kernel's executor of every storage
 deal (ops/storage_scan.py ``BookDeals``, whose ``route`` decides where the
 kernel takes them: a CUDA device, no derivative through the deals, no path
-sharding).  Products without a scan step take the per-date unrolled path.
+sharding), and the exercise kernel's executor of every family-batched
+Bermudan, American and FlexiCall (ops/exercise_scan.py ``BookOptions``,
+under the same rule on the state plane's rows; where it takes them their
+``ExerciseEquityBatch`` batches are neither fitted nor valued).  Products
+without a scan step take the per-date unrolled path.
 The exercise decisions stay hard: gradients of every order flow through the
 payoffs and the pre-simulation fits, never through the policy.
 
@@ -180,7 +184,7 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
-from montecarlo_risk_engine_tpu_torch.ops import recon_tangents, storage_scan
+from montecarlo_risk_engine_tpu_torch.ops import exercise_scan, recon_tangents, storage_scan
 from montecarlo_risk_engine_tpu_torch.ops.path_shard import (
     sharded_kernel_paths,
     sharded_kernel_paths_with_noise,
@@ -400,13 +404,19 @@ class SimulationController:
         # only they hold would be resolved (and, under AD, carry tangents)
         # for nothing.  The JAX package's compiler drops those resolutions.
         self._plan_products = [p for p in self.products if id(p) not in self._batched_ids]
-        # The exercise scans' executors: the storage kernel's deals, and each
-        # torch scan bucket's netting sets on the device (built at its first fit).
+        # The exercise scans' executors: the storage kernel's deals, the
+        # exercise kernel's equity options (the ExerciseEquityBatch products),
+        # and each torch scan bucket's netting sets on the device (built at
+        # its first fit).
         scanned = [p for bucket in self._exercise_scan_groups()[0] for p in bucket]
         self._book_deals = storage_scan.BookDeals(
             scanned, [self.product_to_netting_set_idx[p.product_id] for p in scanned],
             self.exposure_timeline, self.regression_function, self._observation_handles,
             self.device, path_sharding)
+        self._book_options = exercise_scan.BookOptions(
+            [b for b in self._batches if isinstance(b, ExerciseEquityBatch)],
+            self.exposure_timeline if self.risk_metrics.requires_exposure_profiles() else (),
+            self.regression_function, self.device, path_sharding)
         self._bucket_segs: Dict[int, torch.Tensor] = {}
         self._all_requests = (self.spot_requests, self.numeraire_requests)
         self._use_requests(streaming=False)
@@ -1166,15 +1176,15 @@ class SimulationController:
                                            model=self.model, sharding=self.path_sharding))
         return results
 
-    def _evaluate_batches(self, tables, cfs_acc, exp_acc):
-        """The family batches into their netting sets (controller.py:
+    def _evaluate_batches(self, batches, tables, cfs_acc, exp_acc):
+        """The family ``batches`` into their netting sets (controller.py:
         1036-1082): cashflows [n_ns, N] added to ``cfs_acc``, exposure
         profiles [T_exp, N] to ``exp_acc``; returns the new ``cfs_acc``."""
         ctx = self._exposure_ctx()
         need_cfs = self.risk_metrics.requires_discounted_cashflows()
         need_exp = self.risk_metrics.requires_exposure_profiles()
         num_ns = len(self.netting_sets)
-        for batch in self._batches:
+        for batch in batches:
             with tracing.span("value", family=_family(batch), products=len(batch.products)):
                 exp_ns = None
                 if isinstance(batch, ExerciseEquityBatch):
@@ -1225,12 +1235,12 @@ class SimulationController:
                         acc[metric_idx] = acc[metric_idx] + value
         done = set(self._analytic_ids)
         if self._batches and tables is not None:
-            cfs_acc = self._evaluate_batches(tables, cfs_acc, exp_acc)
+            cfs_acc = self._evaluate_batches(fits["batches"], tables, cfs_acc, exp_acc)
             done.update(p.product_id for p in self.products if id(p) in self._batched_ids)
         for products, seg, value in fits["exercise"]:
             with tracing.span("value", exercise_bucket=type(products[0]).__name__,
                               products=len(products)):
-                cfs_p, exp_p = value(resolved)
+                cfs_p, exp_p = value(resolved, tables)
                 ns_of = [self.product_to_netting_set_idx[p.product_id] for p in products]
                 cfs_acc = self._add_exercise_values(ns_of, seg, cfs_p, exp_p, cfs_acc, exp_acc)
             done.update(p.product_id for p in products)
@@ -1280,16 +1290,26 @@ class SimulationController:
             exposure_timeline=self.exposure_timeline, num_netting_sets=len(self.netting_sets),
             regression_function=self.regression_function)
 
+    def _no_fits(self):
+        """The fits of a run without a pre-simulation: every family batch
+        valued by its own executor."""
+        return {"exercise": [], "exposure": {}, "batches": self._batches}
+
     def _fit_regressions(self, params, resolved_pre, tables_pre=None):
         """Every fit on the pre-simulation (controller.py:1413-1432): the
-        family batches' fits, the per-product exposure fits ("exposure") and
-        the exercise executors ("exercise"): the torch scans' buckets and the
-        storage kernel's deals, each as (products, their netting sets on the
-        device, value(resolved) -> (cashflows [P, N], exposure profiles [P,
-        T_exp, N] or None) on the main simulation)."""
+        family batches' fits ("batches": those their own executors value),
+        the per-product exposure fits ("exposure") and the exercise executors
+        ("exercise"): the torch scans' buckets, the storage kernel's deals
+        and the exercise kernel's equity options, each as (products, their
+        netting sets on the device, value(resolved, tables) -> (cashflows [P,
+        N], exposure profiles [P, T_exp, N] or None) on the main
+        simulation)."""
+        fits = self._no_fits()
+        options = None
         if self._batches:
+            options, fits["batches"] = self._book_options.route(self._batches, tables_pre)
             ctx = self._exposure_ctx()
-            for batch in self._batches:
+            for batch in fits["batches"]:
                 if isinstance(batch, ExerciseEquityBatch):
                     with tracing.span("fit", family=_family(batch), products=len(batch.products)):
                         batch.fit(tables_pre, ctx)
@@ -1298,21 +1318,25 @@ class SimulationController:
                         batch.fit_exposure(tables_pre, ctx)
         buckets, plain = self._exercise_scan_groups()
         kernel, buckets = self._book_deals.route(buckets, resolved_pre)
-        fits = {"exercise": [], "exposure": {}}
         for bucket in buckets:
             with tracing.span("fit", exercise_bucket=type(bucket[0]).__name__,
                               products=len(bucket)):
                 coeffs = self._fit_exercise_bucket(bucket, resolved_pre)
-            fits["exercise"].append((bucket, self._bucket_seg(bucket), lambda r, b=bucket, c=coeffs:
-                                     self._evaluate_exercise_bucket(b, c, r)))
+            fits["exercise"].append((bucket, self._bucket_seg(bucket), lambda r, t, b=bucket,
+                                     c=coeffs: self._evaluate_exercise_bucket(b, c, r)))
+        want = self.risk_metrics.requires_exposure_profiles() and len(self.exposure_timeline) > 0
         if kernel is not None:
             with tracing.span("fit", exercise_bucket="Storage", products=len(kernel.products)):
                 coeffs = kernel.fit(resolved_pre, self._local(self.num_paths_presim))
             n = self._local(self.num_paths_mainsim)
-            want = (self.risk_metrics.requires_exposure_profiles()
-                    and len(self.exposure_timeline) > 0)
             fits["exercise"].append((kernel.products, kernel.seg,
-                                     lambda r, c=coeffs: kernel.value(r, c, n, want)))
+                                     lambda r, t, c=coeffs: kernel.value(r, c, n, want)))
+        if options is not None:
+            with tracing.span("fit", exercise_bucket="ExerciseEquityBatch",
+                              products=len(options.products)):
+                coeffs = options.fit(tables_pre)
+            fits["exercise"].append((options.products, options.seg,
+                                     lambda r, t, c=coeffs: options.value(t, c, want)))
         for product in plain:
             with tracing.span("fit", product=type(product).__name__, products=1):
                 fits["exposure"][product.product_id] = self._perform_regression_for_product(
@@ -1321,7 +1345,7 @@ class SimulationController:
 
     def _compute(self, params, kernel_noise=None):
         try:
-            fits = {"exercise": [], "exposure": {}}
+            fits = self._no_fits()
             if self.requires_regression:
                 resolved_pre, tables_pre = self._simulate_and_resolve(
                     params, self.num_paths_presim, rng.PHASE_PRESIM, kernel_noise)

@@ -35,14 +35,9 @@
 //     ridge, a deg x deg LU with partial pivoting and the solve for the S
 //     right-hand sides on one thread, the coefficients broadcast through
 //     shared memory; then the DP step of every grid state of every path.
-//   * Every tree sum adds in metrics.fixed_tree_sum's pairs: padded with +0.0
-//     to P2, element i added to element i + P2 / 2, and so on.  Strides >= T
-//     pair elements of one thread: each thread folds its P2 / T elements in
-//     bit-reversed order on a stack in shared memory, which adds the same
-//     pairs.  Strides T / 2 .. 32 go through shared memory, strides below 32
-//     through warp shuffles (lane i takes lane i + s: the same pairs).  So the
-//     Gram and the right-hand sides have the torch scan's bits.  The sums go
-//     in chunks sized so the stack fits the shared-memory budget.
+//   * Every tree sum adds in metrics.fixed_tree_sum's pairs (lsm_fit.cuh, the
+//     helpers this kernel shares with exercise_scan.cu), so the Gram and the
+//     right-hand sides have the torch scan's bits.
 //   * The carry [S, N] (each grid state's future cashflows) is scratch in
 //     device memory owned path by path: the thread that sums a path's
 //     products is the one that steps it, so no barrier guards it.
@@ -71,12 +66,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lsm_fit.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 512;
+using namespace mcre;
+
 constexpr int kValueThreads = 128;
-constexpr int kMaxStates = 16;
-constexpr int kMaxChunk = 16;
 constexpr int kStackBudget = 160 * 1024;  // bytes of shared memory for the tree sums' stacks
 
 enum Const : int {
@@ -86,30 +82,6 @@ enum Const : int {
 enum DealField : int { kFirstRow, kEvents, kStates, kInjPoints, kWdPoints, kFirstCoef, kDealFields };
 enum RowField : int { kSpotRow, kNumRow, kExpSlot, kRowFields };
 enum Curve : int { kInjPts, kInjRates, kWdPts, kWdRates, kCurves };
-
-// torch.minimum / maximum / clamp on values that are not NaN.
-__device__ __forceinline__ double tmin(double a, double b) { return b < a ? b : a; }
-__device__ __forceinline__ double tmax(double a, double b) { return a < b ? b : a; }
-
-// The monomial basis as PolynomialRegression computes it (x ** k): 1, x,
-// x * x, x * x * x.
-template <int kDeg>
-struct Basis {
-  double a[kDeg];
-  __device__ explicit Basis(double x) {
-    a[0] = 1.0;
-    if constexpr (kDeg > 1) a[1] = x;
-    if constexpr (kDeg > 2) a[2] = x * x;
-    if constexpr (kDeg > 3) a[3] = x * x * x;
-  }
-  // ops/noise.matmul_t: the products summed in index order.
-  __device__ double dot(const double* c) const {
-    double g = a[0] * c[0];
-#pragma unroll
-    for (int k = 1; k < kDeg; ++k) g = g + a[k] * c[k];
-    return g;
-  }
-};
 
 // utils/maths.interp (jnp.interp's arithmetic) on one curve of k points.
 __device__ double interp(double x, const double* xp, const double* fp, int k) {
@@ -197,76 +169,6 @@ __device__ __forceinline__ Row row_of(int r, const double* consts, const double*
           deal[kInjPoints], deal[kWdPoints]};
 }
 
-struct TreeShape {
-  uint32_t num_paths;  // N
-  uint32_t padded;     // P2: N rounded up to a power of two
-  int log_leaves;      // log2 of the elements a thread folds (P2 / T when P2 >= T, else 1)
-  int chunk;           // sums per pass
-};
-
-// out[k] = fixed_tree_sum over the paths of prod(n, k0, kc, vals) for k = 0 ..
-// count - 1 (prod fills vals[c] with the product of sum k0 + c at path n).
-// Called by every thread of the block; out is in shared memory.
-template <class Prod>
-__device__ void tree_sums(int count, Prod prod, double* out, double* stack,
-                          const TreeShape& shape) {
-  const int t = threadIdx.x, nthreads = blockDim.x;
-  const int leaves = 1 << shape.log_leaves;
-  const int width = shape.padded < (uint32_t)nthreads ? (int)shape.padded : nthreads;
-  double* red = stack + (size_t)shape.log_leaves * shape.chunk * nthreads;
-  for (int k0 = 0; k0 < count; k0 += shape.chunk) {
-    const int kc = count - k0 < shape.chunk ? count - k0 : shape.chunk;
-    __syncthreads();  // the stack's last pass is read
-    if (t < width) {
-      for (int q = 0; q < leaves; ++q) {
-        // leaf q of the thread's own tree: its element j = bitreverse(q), so
-        // the stack adds j and j + leaves / 2 first, as the halvings do
-        const uint32_t j = shape.log_leaves ? __brev((uint32_t)q) >> (32 - shape.log_leaves) : 0u;
-        const uint32_t n = (uint32_t)t + (uint32_t)nthreads * j;
-        double vals[kMaxChunk];
-        if (n < shape.num_paths) {
-          prod(n, k0, kc, vals);
-        } else {
-          for (int c = 0; c < kc; ++c) vals[c] = 0.0;  // the halvings' +0.0 padding
-        }
-        for (int c = 0; c < kc; ++c) {
-          double v = vals[c];
-          int lvl = 0;
-          for (; (q >> lvl) & 1; ++lvl) v = stack[((size_t)lvl * shape.chunk + c) * nthreads + t] + v;
-          stack[((size_t)lvl * shape.chunk + c) * nthreads + t] = v;
-        }
-      }
-    }
-    for (int s = width / 2; s >= 32; s >>= 1) {
-      __syncthreads();
-      if (t < s) {
-        for (int c = 0; c < kc; ++c) red[c * nthreads + t] = red[c * nthreads + t] + red[c * nthreads + t + s];
-      }
-    }
-    __syncthreads();
-    if (t < 32) {
-      const int lanes = width < 32 ? width : 32;
-      for (int c = 0; c < kc; ++c) {
-        double v = t < lanes ? red[c * nthreads + t] : 0.0;
-        for (int s = lanes / 2; s >= 1; s >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, s);
-        if (t == 0) out[k0 + c] = v;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The Gram's unique entries in row order: (a, b), a <= b.
-template <int kDeg>
-__device__ __forceinline__ void gram_pair(int k, int& a, int& b) {
-  a = 0;
-  while (k >= kDeg - a) {
-    k -= kDeg - a;
-    ++a;
-  }
-  b = a + k;
-}
-
 template <int kDeg>
 __global__ void __launch_bounds__(kMaxThreads)
 storage_fit_kernel(double* __restrict__ coeffs, double* __restrict__ normal,
@@ -274,7 +176,7 @@ storage_fit_kernel(double* __restrict__ coeffs, double* __restrict__ normal,
                    const int* __restrict__ rows, const double* __restrict__ consts,
                    const double* __restrict__ curves, const int* __restrict__ deals, int k_max,
                    int s_max, TreeShape shape) {
-  constexpr int kGram = kDeg * (kDeg + 1) / 2;
+  constexpr int kGram = gram_entries<kDeg>();
   extern __shared__ double smem[];
   double* sums = smem;                                 // kGram + kDeg * kMaxStates
   double* scale = sums + kGram + kDeg * kMaxStates;    // kDeg column scales
@@ -297,14 +199,7 @@ storage_fit_kernel(double* __restrict__ coeffs, double* __restrict__ normal,
     const double* num = obs + (size_t)rows[r * kRowFields + kNumRow] * N;
 
     // fit_least_squares: column scales, then the Gram and right-hand sides
-    tree_sums(kDeg, [&](uint32_t n, int k0, int kc, double* vals) {
-      const Basis<kDeg> b(spot[n]);
-      for (int c = 0; c < kc; ++c) vals[c] = b.a[k0 + c] * b.a[k0 + c];
-    }, sums, stack, shape);
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < kDeg; ++k) scale[k] = tmax(sqrt(sums[k] * (1.0 / (double)N)), 1e-30);
-    }
-    __syncthreads();
+    column_scales<kDeg>(spot, sums, scale, stack, shape);
     tree_sums(kGram + kDeg * S, [&](uint32_t n, int k0, int kc, double* vals) {
       const Basis<kDeg> b(spot[n]);
       double as[kDeg];
@@ -325,71 +220,9 @@ storage_fit_kernel(double* __restrict__ coeffs, double* __restrict__ normal,
     }, sums, stack, shape);
 
     if (threadIdx.x == 0) {
-      double g[kDeg][kDeg], rhs[kDeg][kMaxStates];
-      for (int k = 0; k < kGram; ++k) {
-        int a, b;
-        gram_pair<kDeg>(k, a, b);
-        g[a][b] = sums[k];
-        g[b][a] = sums[k];
-      }
-      for (int a = 0; a < kDeg; ++a) {
-        for (int s = 0; s < S; ++s) rhs[a][s] = sums[kGram + a * S + s];
-      }
-      if (normal != nullptr) {  // [rows, kDeg, kDeg + s_max]: the Gram, then the right-hand sides
-        double* out = normal + (size_t)r * kDeg * (kDeg + s_max);
-        for (int a = 0; a < kDeg; ++a) {
-          for (int b = 0; b < kDeg; ++b) out[a * (kDeg + s_max) + b] = g[a][b];
-          for (int s = 0; s < S; ++s) out[a * (kDeg + s_max) + kDeg + s] = rhs[a][s];
-        }
-      }
-      // the ridge: 1e-10 of the mean diagonal (+1e-30) on the diagonal
-      double trace = g[0][0];
-      for (int a = 1; a < kDeg; ++a) trace = trace + g[a][a];
-      const double ridge = 1e-10 * (trace * (1.0 / kDeg)) + 1e-30;
-      for (int a = 0; a < kDeg; ++a) {
-        for (int b = 0; b < kDeg; ++b) g[a][b] = g[a][b] + ridge * (a == b ? 1.0 : 0.0);
-      }
-      // LU with partial pivoting (the first largest |pivot|), then the solve,
-      // in the float operations of torch.linalg.lu_factor_ex and lu_solve on
-      // the card (cuBLAS's getrf and getrs): multipliers by the pivot's
-      // reciprocal, fused multiply-adds in the eliminations, the back
-      // substitution by columns dividing by the diagonal
-      for (int k = 0; k < kDeg; ++k) {
-        int p = k;
-        for (int i = k + 1; i < kDeg; ++i) {
-          if (fabs(g[i][k]) > fabs(g[p][k])) p = i;
-        }
-        if (p != k) {
-          for (int j = 0; j < kDeg; ++j) {
-            const double tmp = g[k][j];
-            g[k][j] = g[p][j];
-            g[p][j] = tmp;
-          }
-          for (int s = 0; s < S; ++s) {
-            const double tmp = rhs[k][s];
-            rhs[k][s] = rhs[p][s];
-            rhs[p][s] = tmp;
-          }
-        }
-        const double inv_pivot = 1.0 / g[k][k];
-        for (int i = k + 1; i < kDeg; ++i) {
-          const double l = g[i][k] * inv_pivot;
-          for (int j = k + 1; j < kDeg; ++j) g[i][j] = fma(-l, g[k][j], g[i][j]);
-          for (int s = 0; s < S; ++s) rhs[i][s] = fma(-l, rhs[k][s], rhs[i][s]);
-        }
-      }
-      for (int s = 0; s < S; ++s) {
-        double x[kDeg];
-        for (int j = kDeg - 1; j >= 0; --j) {
-          x[j] = rhs[j][s] / g[j][j];
-          for (int i = 0; i < j; ++i) rhs[i][s] = fma(-g[i][j], x[j], rhs[i][s]);
-        }
-        for (int k = 0; k < kDeg; ++k) {
-          const double cf = x[k] / scale[k];
-          coef[s * kDeg + k] = cf;
-          deal_coeffs[((size_t)e * S + s) * kDeg + k] = cf;
-        }
-      }
+      solve_normal_equations<kDeg>(
+          sums, S, scale, coef, deal_coeffs + (size_t)e * S * kDeg,
+          normal == nullptr ? nullptr : normal + (size_t)r * kDeg * (kDeg + s_max), s_max);
     }
     __syncthreads();
 
@@ -462,17 +295,15 @@ int launch_fit(double* coeffs, double* normal, double* carry, const double* obs,
   uint32_t padded = 1;
   while (padded < num_paths) padded <<= 1;
   const int nthreads = padded < 32 ? 32 : padded > (uint32_t)kMaxThreads ? kMaxThreads : (int)padded;
-  int log_leaves = 0;
-  while (((uint32_t)nthreads << log_leaves) < padded) ++log_leaves;
-  int chunk = kStackBudget / (8 * (log_leaves + 1) * nthreads);
-  chunk = chunk > kMaxChunk ? kMaxChunk : chunk;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  const size_t fixed = kDeg * (kDeg + 1) / 2 + kDeg * kMaxStates + kDeg + kMaxStates * kDeg;
-  const size_t smem = 8 * (fixed + (size_t)(log_leaves + 1) * chunk * nthreads);
+  TreeShape shape;
+  if (!tree_shape(num_paths, nthreads, kStackBudget / (8 * nthreads), &shape)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t fixed = gram_entries<kDeg>() + kDeg * kMaxStates + kDeg + kMaxStates * kDeg;
+  const size_t smem = 8 * (fixed + stack_doubles(shape, nthreads));
   cudaError_t err = cudaFuncSetAttribute(storage_fit_kernel<kDeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const TreeShape shape = {num_paths, padded, log_leaves, chunk};
   storage_fit_kernel<kDeg><<<num_deals, nthreads, smem, stream>>>(
       coeffs, normal, carry, obs, rows, consts, curves, deals, k_max, s_max, shape);
   return (int)cudaGetLastError();

@@ -200,13 +200,15 @@ def gradient_flows(tensors: Sequence) -> bool:
                for t in tensors)
 
 
-def engages(device, regression_function, sharding) -> bool:
+def engages(device, regression_function, sharding, devices=None) -> bool:
     """Whether the controller's storage deals may take the kernel: a CUDA
-    device, no path sharding, the float64 working dtype and a polynomial
-    basis of at most :data:`MAX_BASIS` columns.  The controller also keeps
-    the torch scan where a derivative flows through the deals'
-    observations (:func:`gradient_flows`)."""
-    return (torch.device(device).type in _KERNEL_DEVICES and sharding is None
+    device (one of ``devices``, by default :data:`_KERNEL_DEVICES`), no path
+    sharding, the float64 working dtype and a polynomial basis of at most
+    :data:`MAX_BASIS` columns.  The controller also keeps the torch scan
+    where a derivative flows through the deals' observations
+    (:func:`gradient_flows`)."""
+    devices = _KERNEL_DEVICES if devices is None else devices
+    return (torch.device(device).type in devices and sharding is None
             and real_dtype() == torch.float64
             and type(regression_function) is PolynomialRegression
             and regression_function.get_degree() <= MAX_BASIS)

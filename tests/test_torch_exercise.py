@@ -17,7 +17,7 @@ import montecarlo_risk_engine_tpu_torch as mt
 from montecarlo_risk_engine_tpu import rng as jax_rng
 from montecarlo_risk_engine_tpu.utils.regression import fit_least_squares as jax_fit
 from montecarlo_risk_engine_tpu_torch import tracing
-from montecarlo_risk_engine_tpu_torch.ops import storage_scan
+from montecarlo_risk_engine_tpu_torch.ops import exercise_scan, storage_scan
 from montecarlo_risk_engine_tpu_torch.utils.regression import fit_least_squares
 from gas_books import (compare, compare_coeffs, exposure_book, flexicall, gas_book, pv_book, s2f,
                        scan_storage)
@@ -159,6 +159,66 @@ def test_storage_kernel_route_matches_jax(monkeypatch, book):
     assert spans == [("kernel", "fit", storages), ("kernel", "value", storages)]
     compare(pr, jr, False)
     compare_coeffs(pc.products, jax_presim_coeffs(jc, jc.products), 10.0)
+
+
+@pytest.mark.parametrize("case", ["bermudans_all_paths", "bermudans_itm_only", "flexicalls"])
+def test_equity_exercise_kernel_route_matches_jax(monkeypatch, case):
+    """The equity exercise kernel's route (ops/exercise_scan.py) on the
+    Bermudan and American book above (all paths and in the money) and the
+    gas book's FlexiCalls, with the family batches on and the CPU among the
+    kernel's devices so that its plain version stands in for the kernel:
+    every ExerciseEquityBatch product in one pack, the observation rows,
+    coefficient views and netting.  Values and errors against the JAX
+    package's batched controller, and each exercise product's
+    ``regression_coeffs`` against its per-product fits, at the tolerances
+    above.  The batches (in both packages) gate a FlexiCall's exercise, and
+    not only its fit, in the money, so the gas book's ITM FlexiCall has
+    other coefficients per product: it is left out of that comparison."""
+    monkeypatch.setattr(exercise_scan, "_KERNEL_DEVICES", ("cuda", "cpu"))
+    if case == "flexicalls":
+        book, model, steps, sim_dim, spot0 = gas_book, s2f, 1, 2, 10.0
+    else:
+        itm_only = case == "bermudans_itm_only"
+        book, model, steps, sim_dim, spot0 = (lambda pkg: bermudan_book(pkg, itm_only)), bs, 2, 1, 100.0
+    jbook = book(mj)
+    jc = mj.SimulationController(jbook, model(mj), PV(mj), N, N, steps,
+                                 mj.SimulationScheme.ANALYTICAL, **JAX_FLAGS)
+    jc.run_simulation()  # its plan, for the per-product fits
+    jr = mj.SimulationController(book(mj), model(mj), PV(mj), N, N, steps,
+                                 mj.SimulationScheme.ANALYTICAL,
+                                 **dict(JAX_FLAGS, batch_products=True)).run_simulation()
+    pbook = book(mt)
+    pc = mt.SimulationController(pbook, model(mt), PV(mt), N, N, steps,
+                                 mt.SimulationScheme.ANALYTICAL, device="cpu",
+                                 noise_source=injected(jc, steps, sim_dim))
+    tracing.enable()
+    try:
+        pr = pc.run_simulation()
+        spans = [(r.attrs["route"], r.attrs["phase"], r.attrs["products"]) for r in tracing.take()
+                 if r.name == "exercise" and r.attrs["kind"] != "Storage"]
+    finally:
+        tracing.disable()
+    pairs = [(p, q) for pns, jns in zip(pbook, jbook) for p, q in zip(pns.products, jns.products)
+             if not isinstance(p, mt.Storage)]
+    assert spans == [("kernel", "fit", len(pairs)), ("kernel", "value", len(pairs))]
+    compare(pr, jr, False)
+    # each product's coefficients on its own dates: the route's fit on the
+    # run's pre-simulation
+    pc._ensure_plan()
+    with torch.no_grad():
+        _, pre = pc._simulate_and_resolve(pc.model.initial_params(device=pc.device,
+                                                                  dtype=torch.float64),
+                                          N, jax_rng.PHASE_PRESIM)
+    book = pc._book_options
+    views = exercise_scan.product_coefficients(book.packed, book.fit(pre))
+    for p, (product, view) in enumerate(zip(book.products, views)):
+        first, events = book.packed.options[p, [exercise_scan.FIRST_ROW, exercise_scan.EVENTS]]
+        product.regression_coeffs = view[np.flatnonzero(
+            book.packed.rows[first:first + events, exercise_scan.IS_PROD])]
+    same_fit = [(p, q) for p, q in pairs
+                if not (isinstance(p, mt.FlexiCall) and p.itm_only_regression)]
+    compare_coeffs([p for p, _ in same_fit], jax_presim_coeffs(jc, [q for _, q in same_fit]),
+                   spot0)
 
 
 def test_exposure_book_walks_regression_and_exposure_dates():
