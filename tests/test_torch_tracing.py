@@ -6,6 +6,7 @@ name by name; values bit for bit the same with tracing on and off; and the
 spans on the clock that ``torch.profiler`` stamps its events with."""
 
 import sys
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -183,4 +184,51 @@ def test_exercise_spans_off_keep_nothing_and_change_no_value():
     again = answers(c, traffic)
     assert tracing.take() == []
     for a, b, d in zip(plain, traced, again):
+        assert np.array_equal(a, b) and np.array_equal(a, d)
+
+
+# The Heston QE surface: K1's one launch a run inside the span that owns it.
+HESTON_PV = {"run": 1, "plan": 1, "paths": 1, "resolve": 1, "evaluate": 1, "value": 1,
+             "netting": 50, "to_host": 1, "results": 1}
+HESTON_GREEKS = {"run": 1, "plan": 1, "kernel_noise": 1, "jacobian": 1, "sweep": 1, "paths": 1,
+                 "resolve": 1, "evaluate": 1, "value": 1, "netting": 50, "to_host": 1,
+                 "results": 1}
+
+
+@pytest.mark.parametrize("workload,expected,owner,route,emits", [
+    ("heston_qe_book.pv_1m", HESTON_PV, "paths", "kernel", 0),
+    ("heston_qe_book.greeks_1m", HESTON_GREEKS, "kernel_noise", "recon", 1),
+], ids=["pv", "greeks"])
+def test_heston_spans_and_k1_launches(monkeypatch, workload, expected, owner, route, emits):
+    """K1's launches are counted by its wrapper on the card; on the CPU its
+    plain version stands in, counted here the same way."""
+    from montecarlo_risk_engine_tpu_torch.ops import heston_qe
+
+    real, stamps = heston_qe.heston_qe_paths_reference, []
+
+    def counted(*args, **kwargs):
+        stamps.append(time.time_ns())
+        heston_qe.heston_qe_paths.launches += 1
+        heston_qe.heston_qe_paths.emit_launches += int(bool(kwargs.get("emit_noise")))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(heston_qe, "heston_qe_paths_reference", counted)
+    monkeypatch.setattr(heston_qe.heston_qe_paths, "launches", 0)
+    monkeypatch.setattr(heston_qe.heston_qe_paths, "emit_launches", 0)
+    c, traffic = controller(workload)
+    plain = answers(c, traffic)
+    before = (heston_qe.heston_qe_paths.launches, heston_qe.heston_qe_paths.emit_launches)
+    tracing.enable()
+    traced = [answers(c, traffic) for _ in range(2)]
+    spans = tracing.take()
+    tracing.disable()
+    launched = (heston_qe.heston_qe_paths.launches - before[0],
+                heston_qe.heston_qe_paths.emit_launches - before[1])
+    assert before == (1, emits) and launched == (2, 2 * emits)  # one launch a run
+    for run in runs_of(spans):
+        assert dict(Counter(s.name for s in run)) == expected
+        (paths,) = [s for s in run if s.name == "paths"]
+        assert paths.attrs["route"] == route
+        (own,) = [s for s in run if s.name == owner]
+        assert sum(own.start_ns <= t <= own.end_ns for t in stamps) == 1
+    for a, b, d in zip(plain, *traced):
         assert np.array_equal(a, b) and np.array_equal(a, d)
