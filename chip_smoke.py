@@ -107,12 +107,22 @@ Phases:
      byte bound; then a differentiated north-star run with the route on and
      off: its launches counted by tangent count (4 primal, 2 of 8 and 2 of
      3 tangents), values and jacobian within 1e-10 (``recon_phase``);
+     3g and 3h: the storage and equity exercise scan kernels;
+  3i. the forward-mode Heston QE reconstruction kernel (csrc/qe_tangents.cu)
+     at the Heston surface's shapes on K1's emitted draws: its builds gated
+     on ptxas, the primal and 7-tangent planes against its plain version
+     (at most 2 ulps apart; bitwise so far), call / launch-only / wrapper
+     beside its bound; then the differentiated surface with the route on
+     and off: one primal and one 7-tangent launch a run, values and
+     jacobian within 1e-12 (``qe_tangents_phase``);
   4. BS-multi European book: counts to 0, forward (one K2 launch per run)
      and differentiated runs, counts read; PV against the sum of the
      marginals' closed forms, deltas and vegas against theirs, the
      jacobian against the engine route's on the same stream;
   5. Heston book: counts to 0, forward and differentiated runs, counts
-     read; PVs against the characteristic-function price, the kernel-route
+     read (K1's, and the forward-mode QE reconstruction kernel's: a primal
+     and a 7-tangent launch a differentiated run); PVs against the
+     characteristic-function price, the kernel-route
      jacobian against the engine route's on the same Philox stream, the 1y
      delta against a central difference of the closed form;
   6. north-star book: counts to 0, forward and differentiated runs, counts
@@ -201,11 +211,13 @@ Any failure raises and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.  Run from the repository root:
 
     python3 chip_smoke.py [--split-only [--books-only] | --hessians-only | --examples-only
-                           | --recon-only | --storage-scan-only | --exercise-scan-only]
+                           | --recon-only | --storage-scan-only | --exercise-scan-only
+                           | --qe-tangents-only]
 
 (``--examples-only``: phase 7d alone, after building K1 and K2;
 ``--recon-only``: phase 3f alone; ``--storage-scan-only``: phase 3g alone;
-``--exercise-scan-only``: phase 3h alone.)
+``--exercise-scan-only``: phase 3h alone; ``--qe-tangents-only``: phase 3i
+alone, the Heston QE reconstruction kernel.)
 
 (``--shard-rank r --world R --store F --backend gloo|nccl --out D`` is one
 rank of phase 6b, started by the smoke itself.)
@@ -231,7 +243,9 @@ from montecarlo_risk_engine_tpu_torch import tracing
 from montecarlo_risk_engine_tpu_torch.helpers.cs_helper import probability_of_default
 from montecarlo_risk_engine_tpu_torch.ops import cuda_build
 from montecarlo_risk_engine_tpu_torch.ops import hybrid_paths as k2_module
-from montecarlo_risk_engine_tpu_torch.ops import exercise_scan, recon_tangents, storage_scan
+from montecarlo_risk_engine_tpu_torch.ops import (
+    exercise_scan, qe_tangents, recon_tangents, storage_scan,
+)
 from montecarlo_risk_engine_tpu_torch.ops.heston_qe import (
     heston_qe_paths,
     heston_qe_paths_reference,
@@ -663,9 +677,13 @@ def model_rung(label, c, device, issue=None, phase=PHASE):
 
 
 def heston_main_path(device):
-    """Phase 5: the Heston book; returns K1's launches in it."""
+    """Phase 5: the Heston book; returns K1's launches in it.  Its
+    differentiated runs (forward mode, P = 7 < V = 10) rebuild the plane by
+    the forward-mode Heston QE kernel (ops/qe_tangents.py): a primal and a
+    7-tangent launch a run, counted from 0 here."""
     heston_qe_paths.launches = 0
     heston_qe_paths.emit_launches = 0
+    qe_tangents.qe_planes.launches.clear()
 
     fwd, model, netting_sets = controller(False)
     check(fwd._kernel_active, "the forward book is not on the kernel path")
@@ -692,6 +710,10 @@ def heston_main_path(device):
     torch.cuda.reset_peak_memory_stats()
     diff_results = diff.run_simulation()
     check(heston_qe_paths.emit_launches > emit_before, "differentiated run launched no emit kernel")
+    check(diff._recon_kernel() is qe_tangents, "the differentiated book is off its rebuild kernel")
+    per_run = {0: 1, 7: 1}
+    check(qe_tangents.qe_planes.launches == per_run,
+          f"qe_tangents launched {dict(qe_tangents.qe_planes.launches)} in a run, not {per_run}")
 
     def run_diff():
         nonlocal diff_results
@@ -702,8 +724,12 @@ def heston_main_path(device):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = heston_qe_paths.launches  # this main path only
     print(f"  K1 launches: {launches} (forward 1 per run, differentiated 1 per run)")
+    check(qe_tangents.qe_planes.launches == {k: 2 * n for k, n in per_run.items()},
+          f"qe_tangents launched {dict(qe_tangents.qe_planes.launches)} in two runs")
+    print(f"  qe_tangents launches a differentiated run by tangent count: {per_run}")
 
-    # Reconstruction primal vs the kernel's own states (f32 rounding).
+    # Reconstruction primal (the qe_tangents kernel's primal launch) vs K1's
+    # own states (f32 rounding).
     params64 = model.initial_params(device=device)
     fwd_coarse, noise_fn, recon_fn = diff._kernel_ad_fns(NUM_PATHS, PHASE)
     with torch.no_grad():
@@ -2835,7 +2861,7 @@ KERNELS = {"heston_qe": ["heston_qe_kernel<0,0>", "heston_qe_kernel<0,1>",
                          "heston_qe_kernel<1,0>", "heston_qe_kernel<1,1>"],
            "hybrid_paths": ["hybrid_kernel<0>", "hybrid_kernel<1>", "table_kernel"],
            "heston_ladder": [f"heston_ladder_kernel<{i}>" for i in range(len(RUNGS))],
-           "recon_tangents": ["recon_kernel"]}
+           "recon_tangents": ["recon_kernel"], "qe_tangents": ["qe_tangents_kernel"]}
 
 
 def local_memory_gate(name, built):
@@ -2927,7 +2953,7 @@ def recon_phase():
         """(wall, values, jacobian, launches by tangent count) of a warm run."""
         book = north_star(NS_PATHS, True)
         if not on:
-            book._recon_kernel_engages = lambda: False
+            book._recon_kernel = lambda: None
         book.run_simulation()
         out = []
         recon_tangents.recon_planes.launches.clear()
@@ -3242,6 +3268,129 @@ def exercise_scan_phase():
     return rows
 
 
+# The Heston surface of the benchmark's heston_qe_book: 50 calls, each its
+# own netting set; P = 7, one sweep of 7 tangents.
+SURFACE_STRIKES = (80.0, 90.0, 100.0, 110.0, 120.0)
+# Float64 operations of csrc/qe_tangents.cu a path-step (each +, -, x, /,
+# sqrt, log, clamp and select one): the primal update, and each tangent's
+# own.  Left out: what a tangent build computes once a step for all its
+# tangents (the 12 divisors' reciprocals, 6 doublings and squares, 11
+# comparisons), so the bound is a little low.
+QE_PRIMAL_OPS = 69
+QE_TANGENT_OPS = 92
+FP64_OPS_PER_S = 33.5e12  # NVIDIA H100 SXM data sheet, outside the tensor cores
+
+
+def surface_book():
+    """The Heston surface, differentiated at NUM_PATHS paths on the card."""
+    model = mt.HestonModel(0.0, asset_id="eq", **MODEL_KW)
+    netting_sets = [mt.NettingSet(name=f"call_{t:g}_{k:g}", products=[
+        mt.EuropeanOption(mt.Equity("eq"), t, k, mt.OptionType.CALL, asset_id="eq")])
+        for t in MATURITIES for k in SURFACE_STRIKES]
+    return mt.SimulationController(
+        netting_sets, model, mt.RiskMetrics([mt.PVMetric()]), NUM_PATHS, 0, NUM_STEPS,
+        mt.SimulationScheme.QE, differentiate=True, root_seed=SEED, device="cuda")
+
+
+def qe_tangents_phase():
+    """Phase 3i: the forward-mode Heston QE reconstruction kernel
+    (csrc/qe_tangents.cu) at the Heston surface's shapes ([40, 2^20, 2]) on
+    K1's emitted draws.  Its builds for the primal and the sweep's 7
+    tangents (ptxas: no spill); the primal and the tangent planes against
+    its plain version (bitwise, else the most ulps apart); call,
+    launch-only and wrapper times beside the larger of the byte bound
+    (planes written, draws read, at 3.35 TB/s) and the operation bound
+    (QE_PRIMAL_OPS + c QE_TANGENT_OPS a path-step at 33.5 TFLOP/s); then one
+    warm differentiated surface run with its launches counted from 0 by
+    tangent count (a primal and a 7-tangent launch) against the same run
+    with the route off (the torch rebuild, no launch), values and jacobian
+    to 1e-12 relative.  Returns the kernels' JSON rows."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    c = surface_book()
+    params = c.model.initial_params(device=device, dtype=torch.float64)
+    z, u = c._kernel_noise_of(params)[mt.rng.PHASE_MAINSIM]
+    steps, dts, n_pts = qe_tangents.plan(0.0, tuple(c.simulation_timeline), c.num_steps)
+    steps, dts = torch.from_numpy(steps).to(device), torch.from_numpy(dts).to(device)
+    builds = qe_tangents.load_builds([0, len(params)])
+    for (name, extra), built in builds.items():
+        how = "reused" if built.build_seconds is None else f"built in {built.build_seconds:.1f} s"
+        print(f"[build] {name} {' '.join(extra)}: {how} -> {built.path.name}")
+        for kernel, frame in ptxas_frames(built.log).items():
+            print(f"  {kernel}: {frame}")
+        local_memory_gate(name, built)
+    pvec = torch.stack(params)
+    cols = lambda p: qe_tangents.columns(c.model, tuple(p.unbind(0)), dts)
+    table, init = cols(pvec)
+    eye = torch.eye(len(params), dtype=torch.float64, device=device)
+    table_t, init_t = vmap(lambda t: jvp(cols, (pvec,), (t,))[1])(eye)
+    n_dense, live = steps.shape[0], int(steps[:, 0].sum())
+    print(f"[kernel] qe_tangents at {NUM_PATHS} paths x {n_dense} dense steps -> {n_pts} points")
+    rows = {}
+    for count in (0, len(params)):
+        tangents = (table_t, init_t) if count else (None, None)
+        args = (steps, z, u, table, init, n_pts, *tangents)
+        out, ref = qe_tangents.qe_planes(*args), qe_tangents.qe_planes_reference(*args)
+        torch.cuda.synchronize()
+        same, apart = torch.equal(out, ref), cuda_build.ulps_apart(out, ref)
+        err = float((out - ref).abs().max())
+        label = f"c={count}" if count else "primal"
+        del out, ref
+        check(apart <= 2, f"qe_tangents[{label}]: {apart} ulps from its plain version")
+        run = lambda: qe_tangents.qe_planes(*args)
+        plain_ms = median_ms(lambda: qe_tangents.qe_planes_reference(*args), reps=3)
+        nbytes = (max(count, 1) * n_pts * 2 * 8 + n_dense * 12) * NUM_PATHS
+        ops = (QE_PRIMAL_OPS + count * QE_TANGENT_OPS) * live * NUM_PATHS
+        t_bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                          (ops / FP64_OPS_PER_S * 1e3, "operations"))
+        ms, launch_ms, wrapper_ms = call_split(f"qe_tangents {label}", "mcre_qe_tangents", run,
+                                               t_bound)
+        print(f"    bitwise {same} ({apart:g} ulps at most), {nbytes / 1e9:.2f} GB, "
+              f"{ops / 1e9:.2f} GFLOP: call {ms:.4f} ms, launch {launch_ms:.4f} ms "
+              f"({t_bound / launch_ms:.1%} of the bound {t_bound:.4f} ms by {by}), plain "
+              f"{plain_ms:.3f} ms")
+        rows[count] = {"name": f"qe_tangents[{label}]", "route": "cuda",
+                       "source": "montecarlo_risk_engine_tpu_torch/csrc/qe_tangents.cu",
+                       "replaces": None, "launches": 0, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": t_bound, "bound_by": by,
+                       "library_ms": None, "launch_ms": launch_ms, "wrapper_ms": wrapper_ms}
+        torch.cuda.empty_cache()
+    del z, u, c
+    torch.cuda.empty_cache()
+
+    def run_book(on):
+        """(wall, values, jacobian, launches by tangent count) of a warm run."""
+        book = surface_book()
+        if not on:
+            book._recon_kernel = lambda: None
+        book.run_simulation()
+        out = []
+        qe_tangents.qe_planes.launches.clear()
+        wall = wall_seconds(lambda: out.append(book.run_simulation()))
+        launches = dict(qe_tangents.qe_planes.launches)
+        names = [ns.name for ns in book.netting_sets]
+        values = torch.tensor([out[0].get_results(n, "pv", evaluation_idx=0) for n in names])
+        jac = torch.tensor([list(out[0].get_derivatives(n, "pv", evaluation_idx=0).values())
+                            for n in names])
+        return wall, values, jac, launches
+
+    wall_on, values_on, jac_on, launches = run_book(True)
+    wall_off, values_off, jac_off, launches_off = run_book(False)
+    check(launches == {0: 1, 7: 1}, f"qe_tangents launched {launches} a run, not {{0: 1, 7: 1}}")
+    check(not launches_off, f"qe_tangents launched {launches_off} with the route off")
+    gap_v = float(((values_on - values_off).abs() / values_off.abs().clamp(min=1e-300)).max())
+    gap_j = float((jac_on - jac_off).abs().max() / jac_off.abs().max())
+    print(f"[qe route] Heston surface differentiated at {NUM_PATHS} paths: wall {wall_on:.3f} s "
+          f"with the kernel, {wall_off:.3f} s rebuilt in torch; launches a run by tangent count "
+          f"{launches}; values rel gap {gap_v:.3e}, jacobian gap {gap_j:.3e} (of max)")
+    check(gap_v <= 1e-12 and gap_j <= 1e-12, "the kernel route's values or jacobian moved")
+    for count, row in rows.items():
+        row["launches"] = launches[count]
+    torch.cuda.empty_cache()
+    print(f"[time] qe tangents phase: {time.perf_counter() - t0:.1f} s")
+    return list(rows.values())
+
+
 def reset_k2_counts():
     """K2's counts to 0: the paths kernel's and its table prologue's."""
     hybrid_paths.launches = 0
@@ -3493,6 +3642,11 @@ def main():
     # its route in the whole mixed book, on and off
     exercise_rows = exercise_scan_phase()
 
+    # 3i. the forward-mode Heston QE reconstruction kernel at the Heston
+    # surface's shapes, then its route in the differentiated surface, on
+    # and off
+    qe_rows = qe_tangents_phase()
+
     print(f"[time] kernels checked after {time.perf_counter() - t_start:.1f} s")
 
     # 4. - 7. the main paths and routes: each one's counts from 0 just before
@@ -3585,7 +3739,7 @@ def main():
         "wrapper_ms": k1_wrapper_ms,
     }
     print(json.dumps({"kernels": [k1_row] + k2_rows + k3_rows + recon_rows + storage_rows
-                      + exercise_rows}))
+                      + exercise_rows + qe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3886,6 +4040,9 @@ if __name__ == "__main__":
     elif "--exercise-scan-only" in sys.argv[1:]:
         card()
         print(json.dumps({"kernels": exercise_scan_phase()}))
+    elif "--qe-tangents-only" in sys.argv[1:]:
+        card()
+        print(json.dumps({"kernels": qe_tangents_phase()}))
     elif "--shard-rank" in sys.argv[1:]:
         shard_rank_main(sys.argv[1:])
     else:

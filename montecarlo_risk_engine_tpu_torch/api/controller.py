@@ -81,10 +81,11 @@ of two routes:
     on the plane route with recovered draws and Vasicek, Black-Scholes and
     CIR++ Euler blocks only, the rebuild and its tangents are one kernel launch
     per phase and sweep (ops/recon_tangents.py, span route
-    ``recon_kernel``); every other differentiated kernel book keeps the
-    rebuild in torch ops (``recon``).  The kernel's dispatcher, not the
-    controller, looks at the device: CUDA launches the kernel, the CPU runs
-    its plain version.
+    ``recon_kernel``), and likewise for Heston QE's emitted draws with the
+    fuzzy branches (ops/qe_tangents.py); every other differentiated kernel
+    book keeps the rebuild in torch ops (``recon``).  The kernel's
+    dispatcher, not the controller, looks at the device: CUDA launches the
+    kernel, the CPU runs its plain version.
   * otherwise the engine (engine/engine.py), on any device.
 
 ``use_kernel``: "auto" takes the kernel whenever eligible, True requires it
@@ -184,7 +185,9 @@ from montecarlo_risk_engine_tpu_torch.metrics.metrics import (
 )
 from montecarlo_risk_engine_tpu_torch.models.base import Model
 from montecarlo_risk_engine_tpu_torch.models.hybrid import ModelConfig
-from montecarlo_risk_engine_tpu_torch.ops import exercise_scan, recon_tangents, storage_scan
+from montecarlo_risk_engine_tpu_torch.ops import (
+    exercise_scan, qe_tangents, recon_tangents, storage_scan,
+)
 from montecarlo_risk_engine_tpu_torch.ops.path_shard import (
     sharded_kernel_paths,
     sharded_kernel_paths_with_noise,
@@ -648,8 +651,8 @@ class SimulationController:
         """(forward_coarse, noise_fn, recon_fn) of the differentiated kernel
         route for one phase (controller.py:1192-1257), on this rank's paths;
         with an ``emit_schedule`` they return the schedule's rows
-        (kernel-streaming AD).  Where :meth:`_recon_kernel_engages` holds, the
-        plane's ``recon_fn`` is the reconstruction kernel's."""
+        (kernel-streaming AD).  Where :meth:`_recon_kernel` names a module,
+        the plane's ``recon_fn`` is its reconstruction kernel's."""
         dense, _ = dense_timeline(self.model.calibration_date, self.simulation_timeline,
                                   self.num_steps)
         scheme, n = self.simulation_scheme, self._local(num_paths)
@@ -659,35 +662,36 @@ class SimulationController:
                     self.model, p, scheme, dense, num_paths, self.root_seed, phase,
                     self.path_sharding)
 
-            return emitted_noise_fns(self.model, scheme, self.simulation_timeline,
-                                     n, self.num_steps, noise_forward, emit_schedule)
+            fns = emitted_noise_fns(self.model, scheme, self.simulation_timeline,
+                                    n, self.num_steps, noise_forward, emit_schedule)
+        else:
+            def dense_forward(p):
+                return sharded_kernel_paths(self.model, p, scheme, dense, num_paths, 1,
+                                            self.root_seed, phase, self.path_sharding)
 
-        def dense_forward(p):
-            return sharded_kernel_paths(self.model, p, scheme, dense, num_paths, 1,
-                                        self.root_seed, phase, self.path_sharding)
-
-        fns = recovered_noise_fns(self.model, scheme, self.simulation_timeline,
-                                  n, self.num_steps, dense_forward, emit_schedule)
-        if emit_schedule is None and self._recon_kernel_engages():
-            fns = fns[:2] + (recon_tangents.reconstruction(
+            fns = recovered_noise_fns(self.model, scheme, self.simulation_timeline,
+                                      n, self.num_steps, dense_forward, emit_schedule)
+        kernel = self._recon_kernel()  # None with an emission schedule
+        if kernel is not None:
+            fns = fns[:2] + (kernel.reconstruction(
                 self.model, scheme, self.simulation_timeline, self.num_steps,
                 self.grad_chunk_size),)
         return fns
 
-    def _recon_kernel_engages(self) -> bool:
-        """Whether the differentiated kernel route's plane is rebuilt by the
-        forward-mode reconstruction kernel (ops/recon_tangents.py): forward
-        mode, no Hessian, the float64 working dtype (the kernel's), draws
-        recovered from the states (not emitted) and Vasicek, Black-Scholes
-        and CIR++ Euler blocks only, on the plane route (no emission
-        schedule); a path sharding is no reason to fall back."""
-        scheme = self.simulation_scheme
-        return (self._grad_mode_resolved == "fwd"
-                and not self.requires_higher_order_derivatives
-                and real_dtype() == torch.float64
-                and self.model.kernel_ad_mode(scheme) == "invert"
-                and recon_tangents.supported(
-                    [b for _, _, b in recon_tangents.model_blocks(self.model, scheme)]))
+    def _recon_kernel(self):
+        """The module whose forward-mode kernel rebuilds the differentiated
+        kernel route's plane, or None where the torch rebuild keeps it.  A
+        kernel needs forward mode, no Hessian, the float64 working dtype (its
+        own) and the plane route (no emission schedule), and a path sharding
+        is no reason to fall back; then ops/recon_tangents.py takes draws
+        recovered from the states on Vasicek, Black-Scholes and CIR++ Euler
+        blocks, ops/qe_tangents.py the Heston QE path kernel's emitted draws
+        with the fuzzy branches (each module's ``model_supported``)."""
+        if (self._grad_mode_resolved != "fwd" or self.requires_higher_order_derivatives
+                or real_dtype() != torch.float64 or self._emission_schedule is not None):
+            return None
+        return next((m for m in (recon_tangents, qe_tangents)
+                     if m.model_supported(self.model, self.simulation_scheme)), None)
 
     def _kernel_noise_of(self, params):
         """Frozen draws {phase: noise} of the differentiated kernel route: one
@@ -735,7 +739,7 @@ class SimulationController:
                 return self._plan.resolve_from_emissions(schedule, emissions), tables
         if self._kernel_active:
             if self.differentiate:
-                route = "recon_kernel" if self._recon_kernel_engages() else "recon"
+                route = "recon" if self._recon_kernel() is None else "recon_kernel"
                 with tracing.span("paths", phase=phase, paths=num_paths, route=route):
                     _, noise_fn, recon_fn = self._kernel_ad_fns(num_paths, phase)
                     noise = kernel_noise[phase] if kernel_noise is not None else noise_fn(params)

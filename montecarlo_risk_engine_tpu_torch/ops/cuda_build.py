@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -144,3 +145,29 @@ def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
+
+
+def launch_sizes(num_params: int, chunk: int, per_launch: int) -> List[int]:
+    """The tangent counts of a forward-mode jacobian's launches: sweeps of
+    ``chunk`` of the ``num_params`` directions, each in launches of at most
+    ``per_launch`` tangents."""
+    sizes = []
+    for start in range(0, num_params, chunk):
+        c = min(chunk, num_params - start)
+        sizes += [min(per_launch, c - j) for j in range(0, c, per_launch)]
+    return sizes
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The most units in the last place between two float64 tensors of nan
+    at the same places (inf where the nans differ): how a kernel's output
+    is held to its plain version's."""
+    if not torch.equal(a.isnan(), b.isnan()):
+        return math.inf
+    keep = ~a.isnan()
+    if not bool(keep.any()):
+        return 0.0
+    lo = torch.iinfo(torch.int64).min
+    ia, ib = a[keep].view(torch.int64), b[keep].view(torch.int64)
+    ia, ib = (torch.where(x < 0, lo - x, x) for x in (ia, ib))
+    return float((ia - ib).abs().max())

@@ -427,6 +427,14 @@ def model_blocks(model, scheme):
     return [(m, int(model._param_offsets[i]), b) for i, (m, b) in enumerate(zip(subs, blocks))]
 
 
+def model_supported(model, scheme) -> bool:
+    """Whether the kernel rebuilds this model's differentiated kernel route:
+    draws recovered from the states (``kernel_ad_mode`` "invert") and a
+    block list :func:`supported` takes."""
+    return (model.kernel_ad_mode(scheme) == "invert"
+            and supported([b for _, _, b in model_blocks(model, scheme)]))
+
+
 def model_plan(model, scheme, timeline: Sequence[float], num_steps: int):
     """:func:`plan` of a model's block list; raises for a block list
     :func:`supported` refuses."""
@@ -447,17 +455,6 @@ def psi_columns(model, scheme, params, times: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols) if cols else times.new_zeros((0, times.shape[0]))
 
 
-def launch_sizes(num_params: int, chunk: int) -> List[int]:
-    """The tangent counts of a forward-mode jacobian's launches: sweeps of
-    ``chunk`` of the ``num_params`` directions, each in launches of at most
-    :data:`MAX_TANGENTS`."""
-    sizes = []
-    for start in range(0, num_params, chunk):
-        c = min(chunk, num_params - start)
-        sizes += [min(MAX_TANGENTS, c - j) for j in range(0, c, MAX_TANGENTS)]
-    return sizes
-
-
 def reconstruction(model, scheme, timeline: Sequence[float], num_steps: int,
                    chunk: Optional[int] = None):
     """``recon_fn(params, z)``: the coarse plane [T, N, D] rebuilt from the
@@ -465,7 +462,7 @@ def reconstruction(model, scheme, timeline: Sequence[float], num_steps: int,
     CPU), with forward-mode derivatives; the same function of (params, z)
     as ``recovered_noise_fns``' ``recon_fn``.  ``chunk``: the jacobian's
     sweep size; given, the first call on the card loads the primal's build
-    and those of every sweep's launches (:func:`launch_sizes`) at once,
+    and those of every sweep's launches (``cuda_build.launch_sizes``) at once,
     compiling the missing ones concurrently; else each loads at its first
     launch."""
     layout, steps, times = model_plan(model, scheme, timeline, num_steps)
@@ -474,7 +471,7 @@ def reconstruction(model, scheme, timeline: Sequence[float], num_steps: int,
         dtype, device = params[0].dtype, params[0].device
         steps_d, times_d = _on_device(steps.tobytes(), times, device)
         if device.type == "cuda" and chunk:
-            load_builds(layout, [0, *launch_sizes(len(params), chunk)])
+            load_builds(layout, [0, *cuda_build.launch_sizes(len(params), chunk, MAX_TANGENTS)])
         psi = psi_columns(model, scheme, params, times_d.to(dtype))
         chol = model.noise_transform(params, scheme).to(dtype)
         return _Recon.apply(torch.stack(params), psi, chol, z.to(dtype), steps_d, layout)

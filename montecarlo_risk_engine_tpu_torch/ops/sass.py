@@ -61,7 +61,7 @@ def ptxas_frames(log: str):
         if m:
             kernel = m.group(1)
             name = re.search(r"(hybrid_kernel|table_kernel|heston_qe_kernel|heston_ladder_kernel|"
-                             r"recon_kernel)(I\w*?EEv)?", kernel)
+                             r"recon_kernel|qe_tangents_kernel)(I\w*?EEv)?", kernel)
             if name:  # hybrid_kernelILi4ELb1EEv... -> hybrid_kernel<4,1>
                 args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
                 kernel = name.group(1) + (f"<{','.join(args)}>" if args else "")

@@ -267,6 +267,73 @@ def test_emitted_noise_reconstruction_matches_jax():
         np.testing.assert_allclose(float(a), float(b), rtol=1e-8, atol=1e-10)
 
 
+@pytest.mark.parametrize("sigma", [0.5, 1.0], ids=["surface", "vol_of_vol_1"])
+def test_qe_tangents_route_matches_jax(sigma):
+    """The forward-mode Heston QE kernel's route (ops/qe_tangents.py, its
+    plain version on the CPU) against the JAX package's emitted-noise path
+    on the same frozen float32 draws (float64 for JAX, exactly): the primal
+    plane and its jacobian by the 7 parameters (one sweep of the unit
+    directions) against ``jax.jvp`` / ``jacfwd``, smoothing on, at the
+    Heston surface's vol-of-vol and at 1.0, where psi passes 2 and the
+    tangents of some paths are nan in both packages; those paths are left
+    out, and each package must see the same ones."""
+    from montecarlo_risk_engine_tpu_torch.ops import qe_tangents
+
+    num_paths, num_steps = 256, 4
+    kw = dict(MODEL_KW, sigma=sigma)
+    dense, _ = paths_ad.dense_timeline(0.0, EDGE_TIMELINE, num_steps)
+    gen = torch.Generator().manual_seed(21)
+    z = torch.randn((len(dense), num_paths, 2), generator=gen)
+    u = torch.rand((len(dense), num_paths), generator=gen)
+
+    jmodel = JaxHeston(0.0, **kw)
+    jmodel.requires_grad()
+    jz, ju = jnp.asarray(z.double().numpy()), jnp.asarray(u.double().numpy())
+
+    def jax_scan(params):
+        t_prev, state, outs = 0.0, jmodel.init_state(params, num_paths), []
+        for i, t in enumerate(dense):
+            if t > t_prev:
+                state = jmodel.step(params, JaxScheme.QE, t_prev, t, state, jz[i], uniform=ju[i])
+            outs.append(state)
+            t_prev = t
+        return jnp.stack(outs)
+
+    wrapped = jax_ad.emitted_noise_paths(jmodel, JaxScheme.QE, EDGE_TIMELINE, num_paths,
+                                         num_steps, lambda p: (jax_scan(p), jz, ju))
+    jparams = jmodel.initial_params()
+    j_states = np.asarray(jax.jit(wrapped)(jparams))
+    j_jac = np.stack([np.asarray(j) for j in jax.jit(jax.jacfwd(wrapped))(jparams)])
+
+    model = HestonModel(0.0, **kw)
+    model.requires_grad()
+    recon_fn = qe_tangents.reconstruction(model, SimulationScheme.QE, EDGE_TIMELINE, num_steps,
+                                          chunk=7)
+    params = params_from_numpy([np.asarray(p) for p in jparams])
+    qe_tangents.qe_planes.launches.clear()
+    calls = []
+    real = qe_tangents.qe_planes_reference
+
+    def counted(*args):
+        calls.append(0 if args[6] is None else args[6].shape[0])
+        return real(*args)
+
+    qe_tangents.qe_planes_reference = counted
+    try:
+        states, jac = torch.func.vmap(lambda t: torch.func.jvp(
+            lambda p: recon_fn(p, (z, u)), (params,), (tuple(t.unbind(0)),)))(
+            torch.eye(7, dtype=torch.float64))
+    finally:
+        qe_tangents.qe_planes_reference = real
+    assert sorted(calls) == [0, 7]  # the route's primal and one sweep of 7 tangents
+    np.testing.assert_allclose(states[0].numpy(), j_states, rtol=1e-12, atol=1e-12)
+    finite = np.isfinite(j_jac).all(axis=(0, 1, 3))  # by path
+    assert np.array_equal(np.isfinite(jac.numpy()).all(axis=(0, 1, 3)), finite)
+    assert finite.all() if sigma == 0.5 else 0 < finite.sum() < num_paths
+    for got, want in zip(jac.numpy()[:, :, finite], j_jac[:, :, finite]):  # by parameter
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
 # -- on the card ------------------------------------------------------------------
 
 

@@ -235,6 +235,28 @@ def test_launch_helper_binds_once_and_raises_a_failed_launch():
     assert torch.equal(on_cpu, torch.from_numpy(host.copy())) and on_cpu.is_contiguous()
 
 
+def test_launch_sizes_and_ulps_apart():
+    """The tangent counts of a jacobian's launches (sweeps of ``chunk``
+    directions, at most ``per_launch`` a launch), and the ulp distance the
+    kernels' card tests hold them to: across zero, at nans in the same and
+    in other places."""
+    assert cuda_build.launch_sizes(7, 8, 8) == [7]
+    assert cuda_build.launch_sizes(11, 8, 8) == [8, 3]
+    assert cuda_build.launch_sizes(7, 4, 8) == [4, 3]
+    assert cuda_build.launch_sizes(20, 20, 8) == [8, 8, 4]
+    a = torch.tensor([1.0, -0.0, 5e-324, float("nan")], dtype=torch.float64)
+    assert cuda_build.ulps_apart(a, a.clone()) == 0.0
+    b = a.clone()
+    b[0] = torch.nextafter(b[0], torch.tensor(2.0, dtype=torch.float64))
+    b[1] = -5e-324  # one ulp below -0.0, two from 5e-324
+    assert cuda_build.ulps_apart(a, b) == 1.0
+    b[2] = -5e-324
+    assert cuda_build.ulps_apart(a, b) == 2.0
+    b[3] = 0.0
+    assert cuda_build.ulps_apart(a, b) == float("inf")
+    assert cuda_build.ulps_apart(a[3:], a[3:].clone()) == 0.0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -250,7 +250,7 @@ ROUTE_CASES = {
     "reverse": (lambda: book(grad_mode="rev"), "recon"),
     "hessian": (lambda: hessian_book(), "recon"),
     "emission_schedule": (lambda: book(streaming=True), "recon_rows"),
-    "emitted_noise": (heston_book, "recon"),
+    "emitted_noise": (heston_book, "recon_kernel"),  # ops/qe_tangents.py's kernel, not this one
     "unsupported_block": (lambda: book(model=hull_white_model()), "recon"),
     "float32": (lambda: book(), "recon"),  # set_real_dtype(torch.float32)
 }
@@ -313,7 +313,7 @@ def test_route_choice(case, plain_calls, request):
         tracing.disable()
     routes = [s.attrs["route"] for s in spans if s.name == "paths"]
     assert routes and set(routes) == {route}
-    if route == "recon_kernel":
+    if route == "recon_kernel" and case != "emitted_noise":
         # two phases x two sweeps (P = 11, 8 tangents a sweep): a primal
         # and a tangent call each, the tangent call for the sweep's c at once
         assert c._grad_mode_resolved == "fwd" and len(routes) == 4
@@ -334,7 +334,7 @@ def values_and_jacobian(results):
 
 def test_jacobian_with_the_route_on_and_off(monkeypatch):
     on = values_and_jacobian(book(num_paths=512).run_simulation())
-    monkeypatch.setattr(SimulationController, "_recon_kernel_engages", lambda self: False)
+    monkeypatch.setattr(SimulationController, "_recon_kernel", lambda self: None)
     off = values_and_jacobian(book(num_paths=512).run_simulation())
     assert bool(off[1].abs().max() > 0)
     for a, b in zip(on, off):
@@ -431,7 +431,7 @@ def test_route_on_the_card(cuda_device):
     def run(on):
         c = book(num_paths=4096, device="cuda")
         if not on:
-            c._recon_kernel_engages = lambda: False
+            c._recon_kernel = lambda: None
         return values_and_jacobian(c.run_simulation())
 
     rt.recon_planes.launches.clear()

@@ -195,28 +195,41 @@ HESTON_GREEKS = {"run": 1, "plan": 1, "kernel_noise": 1, "jacobian": 1, "sweep":
                  "results": 1}
 
 
-@pytest.mark.parametrize("workload,expected,owner,route,emits", [
-    ("heston_qe_book.pv_1m", HESTON_PV, "paths", "kernel", 0),
-    ("heston_qe_book.greeks_1m", HESTON_GREEKS, "kernel_noise", "recon", 1),
+@pytest.mark.parametrize("workload,expected,owner,route,emits,rebuilds", [
+    ("heston_qe_book.pv_1m", HESTON_PV, "paths", "kernel", 0, {}),
+    ("heston_qe_book.greeks_1m", HESTON_GREEKS, "kernel_noise", "recon_kernel", 1, {0: 1, 7: 1}),
 ], ids=["pv", "greeks"])
-def test_heston_spans_and_k1_launches(monkeypatch, workload, expected, owner, route, emits):
-    """K1's launches are counted by its wrapper on the card; on the CPU its
-    plain version stands in, counted here the same way."""
-    from montecarlo_risk_engine_tpu_torch.ops import heston_qe
+def test_heston_spans_and_k1_launches(monkeypatch, workload, expected, owner, route, emits,
+                                      rebuilds):
+    """K1's launches, and those of the greeks' rebuild kernel
+    (ops/qe_tangents.py: a primal and a 7-tangent launch inside ``paths``),
+    are counted by their wrappers on the card; on the CPU their plain
+    versions stand in, counted here the same way."""
+    from montecarlo_risk_engine_tpu_torch.ops import heston_qe, qe_tangents
 
     real, stamps = heston_qe.heston_qe_paths_reference, []
+    real_rebuild, rebuild_stamps = qe_tangents.qe_planes_reference, []
 
     def counted(*args, **kwargs):
         stamps.append(time.time_ns())
         heston_qe.heston_qe_paths.launches += 1
         heston_qe.heston_qe_paths.emit_launches += int(bool(kwargs.get("emit_noise")))
         return real(*args, **kwargs)
+
+    def counted_rebuild(*args):
+        rebuild_stamps.append(time.time_ns())
+        qe_tangents.qe_planes.launches[0 if len(args) < 7 or args[6] is None
+                                       else args[6].shape[0]] += 1
+        return real_rebuild(*args)
     monkeypatch.setattr(heston_qe, "heston_qe_paths_reference", counted)
     monkeypatch.setattr(heston_qe.heston_qe_paths, "launches", 0)
     monkeypatch.setattr(heston_qe.heston_qe_paths, "emit_launches", 0)
+    monkeypatch.setattr(qe_tangents, "qe_planes_reference", counted_rebuild)
+    monkeypatch.setattr(qe_tangents.qe_planes, "launches", Counter())
     c, traffic = controller(workload)
     plain = answers(c, traffic)
     before = (heston_qe.heston_qe_paths.launches, heston_qe.heston_qe_paths.emit_launches)
+    assert dict(qe_tangents.qe_planes.launches) == rebuilds
     tracing.enable()
     traced = [answers(c, traffic) for _ in range(2)]
     spans = tracing.take()
@@ -224,11 +237,14 @@ def test_heston_spans_and_k1_launches(monkeypatch, workload, expected, owner, ro
     launched = (heston_qe.heston_qe_paths.launches - before[0],
                 heston_qe.heston_qe_paths.emit_launches - before[1])
     assert before == (1, emits) and launched == (2, 2 * emits)  # one launch a run
+    assert dict(qe_tangents.qe_planes.launches) == {k: 3 * n for k, n in rebuilds.items()}
     for run in runs_of(spans):
         assert dict(Counter(s.name for s in run)) == expected
         (paths,) = [s for s in run if s.name == "paths"]
         assert paths.attrs["route"] == route
         (own,) = [s for s in run if s.name == owner]
         assert sum(own.start_ns <= t <= own.end_ns for t in stamps) == 1
+        assert sum(paths.start_ns <= t <= paths.end_ns
+                   for t in rebuild_stamps) == sum(rebuilds.values())
     for a, b, d in zip(plain, *traced):
         assert np.array_equal(a, b) and np.array_equal(a, d)
